@@ -23,6 +23,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
+
+
 @pytest.fixture(scope="session")
 def profile():
     """Baseline-hardware characterization profile (cached on disk because
