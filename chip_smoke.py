@@ -30,10 +30,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Peak rates of one H100 SXM at its 700 W limit (on-chip-measurement
-# guide, NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s outside the
-# tensor cores (an FMA counted as 2).  The int32 rate is not in the
-# table: an SM has 64 INT32 lanes beside its 128 FP32 lanes, so at the
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA H100 data
+# sheet): HBM3 bytes/s and float32 FLOP/s outside the
+# tensor cores (an FMA counted as 2).  The int32 rate is not in the data
+# sheet: an SM has 64 INT32 lanes beside its 128 FP32 lanes, so at the
 # same 1.98 GHz the int32 peak is 67e12 / 4 operations/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12

@@ -1,4 +1,4 @@
-"""The slice end to end: the port's dse.sweep on the CPU against the
+"""The sweep end to end: the port's dse.sweep on the CPU against the
 reference's dse.sweep(backend="xla") on the same programs, hardware
 grid and memory images.  latency_cc, checksum and steps_executed must be
 bit-identical; energy_pj and power_mw agree at rtol=1e-5 (the bound
