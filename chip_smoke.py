@@ -1,27 +1,48 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of the CGRA estimator on one GPU.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the CGRA estimator's
+DSE sweep and zamba2-2.7b serving.
 
     python3 chip_smoke.py            # from the repository root
 
 Needs one CUDA device and nvcc; builds the kernels from the sources in
 src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
 
-1. device: the card's name and power limit, then the kernel build;
+1. device: the card's name and power limit, then the build of all four
+   kernel libraries, one nvcc each, in parallel;
 2. the alu_dispatch kernel against its plain version on (1048576, 16)
    seeded int32 planes, bit for bit;
 3. the cgra_sweep kernel against its plain version on the card: 5
    MiBench kernels x 5 topologies x their 5 images, and Im2col-OP x 5
    topologies; integer state bit for bit, energy at rtol=1e-5;
-4. the main path at a size users run: the characterization profile
-   computed on the card, then dse.sweep over 4 conv mappings x 40
-   hardware configs x 256 seeded layers (40,960 design points), counted
-   kernel launches, results checked against the conv oracle through the
-   simulator and, for every lane, against the plain engine on the card;
-5. one {"kernels": [...]} line with times, bounds and launch counts;
-6. the last line {"ok": true, "device": {...}}.
+4. the sweep's main path at a size users run: the characterization
+   profile computed on the card, then dse.sweep over 4 conv mappings x
+   40 hardware configs x 256 seeded layers (40,960 design points),
+   counted kernel launches, results checked against the conv oracle
+   through the simulator and, for every lane, against the plain engine
+   on the card;
+5. the flash-attention kernel against its plain version on the card at
+   the serving path's prefill shape (B=1, S=2048, H=32, hd=80, bf16,
+   causal) and at f32 hd 16 and 128, a ragged S=1000, causal=False,
+   window=512 and GQA 32/8 (2e-5 in f32, 2e-2 in bf16, TF32 off), timed
+   beside its plain version and scaled_dot_product_attention;
+6. the intra-chunk SSD kernel against its plain version at
+   (G=32, L=64, H=80, P=64, N=64) f32, rtol = atol = 2e-5, timed;
+7. the serving main path: zamba2-2.7b at full width (54 layers,
+   d_model 2560, seeded weights on the card), a Server with 4 slots and
+   context 4096 answering 8 requests of seeded prompt lengths in
+   256-2048 with 32 greedy tokens each; counted kernel launches
+   (9 x 8 = 72 flash, 54 x 8 = 432 SSD), prefill tokens/s, decode ms per
+   step and tokens/s, peak device memory;
+8. the card's path against the plain path on the host: full width cut
+   to 6 layers (one group), f32, the same weights on both; prompts of
+   256 and 200 tokens spliced into two slots, then 8 teacher-forced
+   decode steps; logits at every step at rtol = atol = 1e-3;
+9. one {"kernels": [...]} line with times, bounds and launch counts;
+10. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -38,6 +59,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = 67e12 / 4
+# dense bf16 tensor-core rate (NVIDIA H100 data sheet)
+BF16_OPS_PER_S = 989e12
 
 # Operations one PE does per executed instruction, counted from the plain
 # version's arithmetic (kernels/cgra_sweep/ref.py): int32 -- operand
@@ -51,6 +74,10 @@ SWEEP_F32_OPS_PER_PE_STEP = 14
 ALU_I32_OPS_PER_ELEMENT = 22
 
 MAIN_MAX_STEPS = 13000
+
+ARCH = "zamba2-2.7b"
+SERVE_SLOTS, SERVE_CONTEXT, SERVE_REQUESTS, SERVE_GEN = 4, 4096, 8, 32
+FLASH_TILE = 64            # q and k tile of csrc/flash_attention.cu
 
 
 def fail(msg: str):
@@ -73,6 +100,273 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+    """(least ms the card could take, what sets it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(dev) -> dict:
+    """Phase 5: the flash-attention kernel against its plain version."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.flash_attention.ops import _expand_kv, attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[flash] torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(B, S, H, KV, hd, dtype):
+        return [torch.randn(B, S, h, hd, device=dev, generator=gen).to(dtype)
+                for h in (H, KV, KV)]
+
+    def plain(q, k, v, causal, window):
+        H = q.shape[2]
+        return attention_ref(q.transpose(1, 2), _expand_kv(k, H),
+                             _expand_kv(v, H), causal=causal,
+                             window=window).transpose(1, 2)
+
+    cases = [  # (name, B, S, H, KV, hd, dtype, causal, window)
+        ("main bf16 causal", 1, 2048, 32, 32, 80, torch.bfloat16, True, None),
+        ("f32 hd16", 1, 2048, 32, 32, 16, torch.float32, True, None),
+        ("f32 hd128", 1, 2048, 32, 32, 128, torch.float32, True, None),
+        ("ragged S=1000", 1, 1000, 32, 32, 80, torch.float32, True, None),
+        ("causal=False", 1, 2048, 32, 32, 80, torch.float32, False, None),
+        ("window=512", 1, 2048, 32, 32, 80, torch.float32, True, 512),
+        ("GQA 32/8 bf16", 1, 2048, 32, 8, 80, torch.bfloat16, True, None),
+    ]
+    main_err = None
+    for name, B, S, H, KV, hd, dtype, causal, window in cases:
+        q, k, v = inputs(B, S, H, KV, hd, dtype)
+        got = attention(q, k, v, causal=causal, window=window)
+        want = plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol)),
+              f"flash_attention {name}: max abs err {err:.3g} over {tol}")
+        print(f"[flash] {name} (B={B}, S={S}, H={H}, KV={KV}, hd={hd}, "
+              f"{str(dtype)[6:]}, causal={causal}, window={window}): max "
+              f"abs err {err:.3g} <= {tol}")
+        main_err = err if main_err is None else main_err
+
+    B, S, H, hd = 1, 2048, 32, 80
+    q, k, v = inputs(B, S, H, H, hd, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = cuda_ms(lambda: attention(q, k, v, causal=True), reps=20)
+    plain_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True),
+                       reps=5)
+    sdpa(qt, kt, vt, is_causal=True)
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
+    pairs = S * (S + 1) // 2                  # the causal band
+    b_ms, b_by = bound(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs,
+                       BF16_OPS_PER_S)
+    print(f"[flash] main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
+            "launches": None, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+            "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True}
+
+
+def ssd_phase(dev) -> dict:
+    """Phase 6: the intra-chunk SSD kernel against its plain version."""
+    import torch
+    from torch.nn.functional import softplus
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
+
+    G, L, H, P, N = 32, 64, 80, 64, 64
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    x = randn(G, L, H, P)
+    dt = softplus(randn(G, L, H))
+    cum = torch.cumsum(-softplus(randn(G, L, H)), dim=1)
+    Bm, Cm = randn(G, L, N), randn(G, L, N)
+    got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    want = intra_chunk_ref(x, dt, cum, Bm, Cm)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+          f"ssd_intra_chunk: max abs err {err:.3g} over 2e-5")
+    ms = cuda_ms(lambda: ssd_intra_chunk(x, dt, cum, Bm, Cm), reps=20)
+    plain_ms = cuda_ms(lambda: intra_chunk_ref(x, dt, cum, Bm, Cm), reps=5)
+    tri = L * (L + 1) // 2                  # pairs j <= i of a chunk
+    n_bytes = 4 * (2 * G * L * H * P + 2 * G * L * H + 2 * G * L * N)
+    # C.B^T over the triangle once a chunk; per head and pair: the
+    # difference, exp and two multiplies of the score; the product with x
+    n_ops = 2 * G * tri * N + 4 * G * H * tri + 2 * G * H * tri * P
+    b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+    print(f"[ssd] (G={G}, L={L}, H={H}, P={P}, N={N}) f32: max abs err "
+          f"{err:.3g} <= 2e-5; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.3f} GFLOP)")
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba2_scan/csrc/"
+                      "ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/mamba2_scan/kernel.py:56",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [G, L, H, P, N]}
+
+
+def serve_phase(dev) -> dict:
+    """Phase 7: zamba2-2.7b at full width behind the Server."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import make_model
+
+    cfg = get_config(ARCH)
+    model = make_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB f32) initialised on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(256, 2049, SERVE_REQUESTS)
+    check(any(n % 64 and n % FLASH_TILE for n in lengths),
+          "no prompt length is ragged against the SSD chunk and the tile")
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lengths]
+    print(f"[serve] prompt lengths {lengths.tolist()}")
+    srv = Server(model, params, slots=SERVE_SLOTS, context=SERVE_CONTEXT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    attention.launches = 0
+    ssd_intra_chunk.launches = 0
+    pending = list(reversed(prompts))
+    done, prefill_s, decode_s, steps, decode_tokens = [], 0.0, 0.0, 0, 0
+    t_all = time.perf_counter()
+    while pending or srv.active.any():
+        for s in range(srv.slots):
+            if not srv.active[s] and pending:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                srv.admit(s, pending.pop())
+                torch.cuda.synchronize()
+                prefill_s += time.perf_counter() - t
+        n_active = int(srv.active.sum())
+        t = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t
+        steps += 1
+        decode_tokens += n_active
+        for s in range(srv.slots):
+            if srv.active[s] and len(srv.outputs[s]) >= SERVE_GEN:
+                done.append(srv.outputs[s])
+                srv.active[s] = False
+    wall = time.perf_counter() - t_all
+    launches = {"flash_attention": attention.launches,
+                "ssd_intra_chunk": ssd_intra_chunk.launches}
+    print(f"[serve] launches: {launches}")
+    # one flash launch per shared-block application, one SSD launch per
+    # Mamba2 layer, per prefill; decode runs neither kernel
+    want = {"flash_attention":
+            cfg.n_layers // cfg.shared_attn_every * SERVE_REQUESTS,
+            "ssd_intra_chunk": cfg.n_layers * SERVE_REQUESTS}
+    check(launches == want, f"kernel launches {launches} on the serving "
+          f"path, expected {want}")
+    check(len(done) == SERVE_REQUESTS
+          and all(len(d) == SERVE_GEN for d in done),
+          f"served {len(done)} of {SERVE_REQUESTS} requests")
+    check(all(0 <= t < cfg.vocab for d in done for t in d),
+          "a generated token is outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(launches,
+                 prefill_tok_s=float(lengths.sum()) / prefill_s,
+                 decode_ms_per_step=decode_s / steps * 1e3,
+                 decode_tok_s=decode_tokens / decode_s)
+    print(f"[serve] {len(done)} requests, {int(lengths.sum())} prompt "
+          f"tokens, {SERVE_REQUESTS * SERVE_GEN} generated, wall "
+          f"{wall:.3f} s; prefill {prefill_s:.3f} s "
+          f"({stats['prefill_tok_s']:.1f} tokens/s); {steps} decode steps "
+          f"in {decode_s:.3f} s ({stats['decode_ms_per_step']:.3f} ms per "
+          f"step, {stats['decode_tok_s']:.1f} tokens/s); "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    del srv, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def depth6_phase(dev) -> None:
+    """Phase 8: the card's path against the plain path on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+
+    cfg = get_config(ARCH).replace(n_layers=6, dtype="float32")
+    m_dev, m_cpu = make_model(cfg, device=dev), make_model(cfg, device="cpu")
+    p_dev = m_dev.init(torch.Generator(device=dev).manual_seed(1))
+    p_cpu = copy.deepcopy(p_dev).to("cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (256, 200)]
+    context, steps = 512, 8
+    index = max(len(p) for p in prompts)     # the Server's shared index
+
+    def run(model, params, forced):
+        caches = model.init_caches(len(prompts), context)
+        out = []
+        for slot, prompt in enumerate(prompts):
+            toks = torch.as_tensor(prompt[None], device=model.device)
+            logits, one = model.prefill(params, {"tokens": toks},
+                                        context=context)
+            caches = model.splice_cache(caches, one, slot)
+            out.append(logits[:, -1].float().cpu())
+        feed = forced or [torch.cat(out).argmax(-1)[:, None]]
+        for t in range(steps):
+            logits, caches = model.decode(params, feed[t].to(model.device),
+                                          caches, index + t)
+            out.append(logits[:, -1].float().cpu())
+            if not forced:
+                feed.append(out[-1].argmax(-1)[:, None])
+        return out, feed
+
+    t = time.perf_counter()
+    want, feed = run(m_cpu, p_cpu, None)
+    t_cpu = time.perf_counter() - t
+    got, _ = run(m_dev, p_dev, feed)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
+              f"depth-6 step {i}: non-finite logits or wrong shape")
+        check(bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3)),
+              f"depth-6 step {i}: card and host logits differ by "
+              f"{errs[i]:.3g} (rtol = atol = 1e-3)")
+    print(f"[depth6] {ARCH} at full width, 6 layers, f32: 2 prefills "
+          f"(256, 200 tokens) + {steps} teacher-forced decode steps, card "
+          f"vs host logits max abs err {max(errs):.3g} <= 1e-3 "
+          f"(per step {[float(f'{e:.3g}') for e in errs]}); host run "
+          f"{t_cpu:.1f} s")
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -111,7 +405,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
     _build.build_all()
-    print(f"[build] both kernel libraries ready in "
+    print(f"[build] all four kernel libraries ready in "
           f"{time.perf_counter() - t:.3f} s; cgra_sweep kernel "
           f"{kernel_attributes()}")
 
@@ -294,7 +588,15 @@ def main() -> int:
               f" (B={r3[4]}): kernel == plain, energy max rel err "
               f"{r3[1]:.3g}; kernel {r3[2]:.3f} ms, plain {r3[3]:.3f} ms")
 
-    # ---- 5. kernels line ----------------------------------------------------
+    # ---- 5-8. the language-model kernels and the serving path -------------
+    flash_entry = flash_phase(dev)
+    ssd_entry = ssd_phase(dev)
+    serve_stats = serve_phase(dev)
+    flash_entry["launches"] = serve_stats["flash_attention"]
+    ssd_entry["launches"] = serve_stats["ssd_intra_chunk"]
+    depth6_phase(dev)
+
+    # ---- 9. kernels line ----------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -318,9 +620,13 @@ def main() -> int:
          "launches": launches["alu_dispatch"], "max_abs_err": alu_err,
          "ms": alu_ms, "plain_ms": alu_plain_ms, "bound_ms": alu_bound,
          "bound_by": "bytes", "library_ms": None, "shape": list(shape)},
+        flash_entry, ssd_entry,
     ]
     print(f"[summary] profile on the card {prof_cuda_t:.3f} s; main sweep "
-          f"{wall:.3f} s for {B} design points")
+          f"{wall:.3f} s for {B} design points; serving "
+          f"{serve_stats['prefill_tok_s']:.1f} prefill tokens/s, "
+          f"{serve_stats['decode_ms_per_step']:.3f} ms per decode step, "
+          f"{serve_stats['decode_tok_s']:.1f} decode tokens/s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,44 @@
+"""Architecture registry of the port.
+
+``get_config(name)``: the full configuration.  ``get_smoke_config(name)``:
+the reduced configuration of the same family for CPU tests.  Only the
+architectures the port serves are registered (``zamba2-2.7b``); asking
+for another raises an error that says where the rest are planned.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from ..models.config import ModelConfig
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(name: str, full: Callable[[], ModelConfig],
+             smoke: Callable[[], ModelConfig]):
+    _REGISTRY[name] = full
+    _SMOKE[name] = smoke
+
+
+def _lookup(table: Dict[str, Callable[[], ModelConfig]],
+            name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in table:
+        raise KeyError(
+            f"architecture {name!r} is not ported to PyTorch yet (ported: "
+            f"{', '.join(sorted(table))}); ROADMAP.md queue 1 lists the "
+            f"others")
+    return table[name]().validate()
+
+
+def get_config(name: str) -> ModelConfig:
+    return _lookup(_REGISTRY, name)
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _lookup(_SMOKE, name)
+
+
+def _ensure_loaded():
+    from . import zamba2_2_7b  # noqa: F401

@@ -22,16 +22,26 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # no FMA contraction: the per-PE energy terms then round
-              # exactly as the plain PyTorch version's separate ops do
-              "-fmad=false"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# no FMA contraction in the CGRA libraries: the per-PE energy terms then
+# round exactly as the plain PyTorch version's separate ops do
+_NO_FMAD = ["-fmad=false"]
 
-# library name -> its .cu source; headers are found next to it and in
-# the shared cgra_step/csrc
+# library name -> its .cu source; headers are found next to it
 SOURCES: Dict[str, Path] = {
     "cgra_alu": _PKG / "cgra_step" / "csrc" / "cgra_alu.cu",
     "cgra_sweep": _PKG / "cgra_sweep" / "csrc" / "cgra_sweep.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+    "ssd_intra_chunk": _PKG / "mamba2_scan" / "csrc" / "ssd_intra_chunk.cu",
+}
+# library name -> its flags beyond NVCC_FLAGS (the sweep kernel also
+# includes the ALU header of cgra_step/csrc)
+EXTRA_FLAGS: Dict[str, List[str]] = {
+    "cgra_alu": _NO_FMAD,
+    "cgra_sweep": _NO_FMAD + ["-I", str(_PKG / "cgra_step" / "csrc")],
+    "flash_attention": [],
+    "ssd_intra_chunk": [],
 }
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,8 +54,12 @@ def nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS[name]
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for p in [SOURCES[name], *sorted(_PKG.glob("*/csrc/*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -60,8 +74,7 @@ def _start(name: str):
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(_PKG / "cgra_step" / "csrc"),
-           "-o", str(tmp), str(SOURCES[name])]
+    cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc

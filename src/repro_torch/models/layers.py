@@ -1,0 +1,300 @@
+"""Shared building blocks of the served models, in PyTorch.
+
+Mirrors ``repro.models.layers`` for what the hybrid family runs: norms,
+1-D RoPE, attention (prefill through the flash-attention kernel, decode
+against a KV cache), the SwiGLU MLP, the untied embedding and the logits
+with their padded-vocabulary mask.  Parameters keep the reference's
+shapes and names (``wq`` is (D, H, hd), ...), so ``repro_torch.convert``
+carries weights across by name.  The reference's sharding annotations
+have no counterpart: the port runs on one device.  Parameters are held
+without gradients: this is the serving path.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention.ops import attention
+from .config import ModelConfig
+from .initlib import dense_init, ones_init, zeros_init
+
+NEG_INF = -1e9
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cdt(cfg: ModelConfig) -> torch.dtype:
+    """The activation (compute) type."""
+    return DTYPES[cfg.dtype]
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """``scale`` (rmsnorm, layernorm), ``bias`` (layernorm); olmo's
+    nonparam_ln has neither."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.scale = self.bias = None
+        if cfg.norm in ("rmsnorm", "layernorm"):
+            self.scale = param(ones_init((d,), device))
+        if cfg.norm == "layernorm":
+            self.bias = param(zeros_init((d,), device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(self, self.cfg, x)
+
+
+def apply_norm(p: Norm, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.bf16_elementwise and x.dtype != torch.float32:
+        # f32 statistics, working-type multiplies
+        xf = x.float()
+        if cfg.norm == "rmsnorm":
+            s = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+            return x * s.to(x.dtype) * p.scale.to(x.dtype)
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (x - mu.to(x.dtype)) * torch.rsqrt(var + 1e-5).to(x.dtype)
+        if cfg.norm == "layernorm":
+            y = y * p.scale.to(x.dtype) + p.bias.to(x.dtype)
+        return y
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        y = y * p.scale.float()
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        if cfg.norm == "layernorm":
+            y = y * p.scale.float() + p.bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (1-D RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (B, S) integers.  Returns cos/sin of shape
+    (B, S, 1, hd // 2), float32 (head-broadcastable)."""
+    dev = positions.device
+    inv = torch.tensor(theta, dtype=torch.float32, device=dev) ** (
+        -torch.arange(0, hd, 2, dtype=torch.float32, device=dev) / hd)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               bf16_mul: bool = False) -> torch.Tensor:
+    """x: (B, S, H, hd); rotate-half convention.  bf16_mul rotates in the
+    working type (cfg.bf16_elementwise)."""
+    half = x.shape[-1] // 2
+    if bf16_mul and x.dtype != torch.float32:
+        x1, x2 = x[..., :half], x[..., half:]
+        c, s = cos.to(x.dtype), sin.to(x.dtype)
+        return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Decode-time cache.  ``k``/``v``: (B, C, KV, hd), C the context (or
+    the window for SWA configs, a ring buffer).  ``pos``: (B, C) int32
+    absolute positions, -1 for an empty row."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        g = generator
+        self.wq = param(dense_init((D, H, hd), g, device, fan_in=D))
+        self.wk = param(dense_init((D, KV, hd), g, device, fan_in=D))
+        self.wv = param(dense_init((D, KV, hd), g, device, fan_in=D))
+        self.wo = param(dense_init((H, hd, D), g, device, fan_in=H * hd))
+
+    def forward(self, x, **kw):
+        return attention_forward(self, self.cfg, x, **kw)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") in x's type."""
+    D, H, K = w.shape
+    return (x @ w.to(x.dtype).reshape(D, H * K)).unflatten(-1, (H, K))
+
+
+def _out_proj(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") in y's type."""
+    H, K, D = wo.shape
+    return y.flatten(-2) @ wo.to(y.dtype).reshape(H * K, D)
+
+
+def _qkv(p: Attention, x: torch.Tensor):
+    return _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float):
+    """q: (B,S,H,hd), k: (B,T,KV,hd) -> logits (B,KV,G,S,T), G = H//KV."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    return torch.einsum("bskgh,btkh->bkgst", qg, k) * scale
+
+
+def _gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs: (B,KV,G,S,T), v: (B,T,KV,hd) -> (B,S,H,hd)."""
+    B, KV, G, S, T = probs.shape
+    y = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return y.reshape(B, S, KV * G, v.shape[-1])
+
+
+def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None):
+    """Full-sequence self-attention (prefill) at positions 0..S-1, through
+    the flash-attention kernel.  Returns (y, (k, v)); k/v build the decode
+    cache."""
+    q, k, v = _qkv(p, x)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin, cfg.bf16_elementwise)
+    k = apply_rope(k, cos, sin, cfg.bf16_elementwise)
+    y = attention(q, k, v, causal=causal, window=window)
+    return _out_proj(y, p.wo), (k, v)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, context: int,
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
+    """context = min(context, window) for SWA configs: the ring buffer
+    bounds decode memory whatever the sequence length."""
+    c = context if cfg.window is None else min(context, cfg.window)
+    shape = (batch, c, cfg.n_kv_heads, cfg.hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.full((batch, c), -1, dtype=torch.int32,
+                                  device=device))
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     cache: KVCache,
+                     index: int) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode.  x: (B, 1, D); index: the absolute position,
+    shared by the batch.  Writes row ``index % C`` of the cache in place
+    (the reference returns an updated copy) and returns it.  Masking is by
+    the absolute positions in ``cache.pos``, so ring overwrites are
+    exact."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x)
+    cos, sin = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    slot = index % cache.k.shape[1]
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.pos[:, slot] = index
+    logits = _gqa_scores(q, cache.k.to(x.dtype),
+                         1.0 / math.sqrt(cfg.hd)).float()
+    valid = (cache.pos >= 0) & (cache.pos <= index)
+    if cfg.window is not None:
+        valid &= cache.pos > index - cfg.window
+    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, -1).to(x.dtype)
+    y = _gqa_combine(probs, cache.v.to(x.dtype))
+    return _out_proj(y, p.wo), cache
+
+
+def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                       context: int) -> KVCache:
+    """A decode cache from prefill's k/v (the last ``window`` positions for
+    SWA configs), padded with empty rows to the context."""
+    B, S = k.shape[0], k.shape[1]
+    C = context if cfg.window is None else min(context, cfg.window)
+    kk, vv = k[:, -C:], v[:, -C:]
+    n = kk.shape[1]
+    pos = torch.arange(S - n, S, dtype=torch.int32,
+                       device=k.device).expand(B, n)
+    pad = C - n
+    if pad > 0:
+        kk = nn.functional.pad(kk, (0, 0, 0, 0, 0, pad))
+        vv = nn.functional.pad(vv, (0, 0, 0, 0, 0, pad))
+        pos = nn.functional.pad(pos, (0, pad), value=-1)
+    return KVCache(kk, vv, pos)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        D, F, g = cfg.d_model, cfg.d_ff, generator
+        self.wg = param(dense_init((D, F), g, device))
+        self.wu = param(dense_init((D, F), g, device))
+        self.wd = param(dense_init((F, D), g, device, fan_in=F))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_mlp(self, self.cfg, x)
+
+
+def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = nn.functional.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    return h @ p.wd.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        Vp, D = cfg.vocab_padded, cfg.d_model
+        self.table = param(dense_init((Vp, D), generator, device, fan_in=D))
+        self.head = param(dense_init((D, Vp), generator, device))
+
+
+def embed_tokens(p: Embedding, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return p.table[tokens.long()].to(cdt(cfg))
+
+
+def logits_from_hidden(p: Embedding, cfg: ModelConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    """float32 logits over the padded vocabulary; the padding columns
+    carry NEG_INF so a log-sum-exp over them is exact."""
+    out = x.float() @ p.head.float()
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        out = out.masked_fill(pad, NEG_INF)
+    return out

@@ -1,0 +1,86 @@
+"""The model API the server uses, in PyTorch.
+
+Mirrors the serving half of ``repro.models.model.Model``:
+
+  init(seed)                            -> params (an nn.Module)
+  prefill(params, batch, context=)      -> (logits, caches)
+  decode(params, tokens, caches, index) -> (logits, caches)
+  init_caches(batch, context)
+  splice_cache(caches, cache_one, slot)
+
+Only the hybrid family (zamba2) is ported; asking for another raises.
+The model lives on one device: CUDA unless the caller names the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Union
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import hybrid
+from .config import ModelConfig
+from .layers import KVCache
+from .ssm import SSMState
+
+PORTED_FAMILIES = ("hybrid",)
+
+
+def _leaves(tree) -> Iterator:
+    if isinstance(tree, tuple):
+        for t in tree:
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, seed: Union[int, torch.Generator] = 0
+             ) -> hybrid.HybridLM:
+        """Fresh parameters on the model's device, drawn from ``seed`` (a
+        ``torch.Generator`` on that device, or an integer seeding one)."""
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        return hybrid.HybridLM(self.cfg, gen, self.device)
+
+    def prefill(self, params: hybrid.HybridLM,
+                batch: Dict[str, torch.Tensor], *, context: int = 0):
+        context = context or batch["tokens"].shape[1]
+        return params.prefill(batch["tokens"], context=context)
+
+    def decode(self, params: hybrid.HybridLM, tokens: torch.Tensor,
+               caches: hybrid.HybridCaches, index: int):
+        return params.decode_step(tokens, caches, index)
+
+    def init_caches(self, batch: int, context: int) -> hybrid.HybridCaches:
+        return hybrid.init_caches(self.cfg, batch, context, self.device)
+
+    def cache_batch_axes(self) -> hybrid.HybridCaches:
+        """The batch axis of every cache leaf (for slot splicing)."""
+        return hybrid.HybridCaches(ssm=SSMState(h=2, conv=2),
+                                   kv=KVCache(k=1, v=1, pos=1))
+
+    def splice_cache(self, caches: hybrid.HybridCaches,
+                     cache_one: hybrid.HybridCaches,
+                     slot: int) -> hybrid.HybridCaches:
+        """Write a batch-1 request cache into batch row ``slot`` of
+        ``caches``, in place (the reference returns a new pytree)."""
+        for full, new, ax in zip(_leaves(caches), _leaves(cache_one),
+                                 _leaves(self.cache_batch_axes())):
+            full.select(ax, slot).copy_(new.select(ax, 0))
+        return caches
+
+
+def make_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"PyTorch yet (ported: {', '.join(PORTED_FAMILIES)}); "
+            f"ROADMAP.md queue 1 lists it")
+    return Model(cfg.validate(), resolve_device(device))

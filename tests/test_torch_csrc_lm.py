@@ -1,0 +1,196 @@
+"""The per-tile arithmetic of the language-model kernels, compiled for
+the host with g++ and held against the port's plain PyTorch versions.
+
+``flash_tile.cuh`` (band mask, k-tile skip test, online-softmax steps)
+and ``ssd_tile.cuh`` (decay and score of one (i, j) pair) are the
+__host__ __device__ functions the CUDA kernels call.  The shim below
+runs the kernels' algorithms serially with them -- the flash kernel's
+q-tile / k-tile walk with its skipped tiles and ragged edges, the SSD
+kernel's C.B^T-then-scores product -- so a wrong mask, a skipped live
+tile or a mis-scaled online update shows here, before any GPU runs it.
+Tolerances are the JAX tests': 2e-5 for attention, 1e-5 for SSD.
+"""
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small tensors: intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref  # noqa: E402
+
+KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
+    "kernels"
+
+SHIM = r"""
+#include <stdint.h>
+#include <algorithm>
+#include <vector>
+#include "flash_tile.cuh"
+#include "ssd_tile.cuh"
+extern "C" {
+// one head: q (S, hd), k/v (T, hd), o (S, hd); q-tiles of bq, k-tiles of bk
+void h_flash(const float* q, const float* k, const float* v, float* o,
+             int S, int T, int hd, int causal, int window, int bq, int bk) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  std::vector<float> s(bk), p(bk), acc(hd);
+  std::vector<char> live(bk);
+  for (int q_lo = 0; q_lo < S; q_lo += bq) {
+    const int q_hi = std::min(q_lo + bq, S) - 1;
+    for (int qi = q_lo; qi <= q_hi; ++qi) {
+      float m = fa::NEG_INF, l = 0.0f;
+      std::fill(acc.begin(), acc.end(), 0.0f);
+      for (int k_lo = 0; k_lo < T; k_lo += bk) {
+        const int k_hi = std::min(k_lo + bk, T) - 1;
+        if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window)) continue;
+        float mx = fa::NEG_INF;
+        for (int j = 0; j < bk; ++j) {
+          const int kj = k_lo + j;
+          live[j] = fa::in_band(qi, kj, T, causal, window);
+          float dot = 0.0f;
+          if (kj < T)
+            for (int d = 0; d < hd; ++d) dot += q[qi * hd + d] * k[kj * hd + d];
+          s[j] = live[j] ? dot * scale : fa::NEG_INF;
+          mx = std::max(mx, s[j]);
+        }
+        const float alpha = fa::online_rescale(m, mx);
+        float sum = 0.0f;
+        for (int j = 0; j < bk; ++j) {
+          p[j] = fa::online_prob(s[j], m, live[j]);
+          sum += p[j];
+        }
+        l = l * alpha + sum;
+        for (int d = 0; d < hd; ++d) {
+          float a = acc[d] * alpha;
+          for (int j = 0; j < bk && k_lo + j < T; ++j)
+            a += p[j] * v[(k_lo + j) * hd + d];
+          acc[d] = a;
+        }
+      }
+      for (int d = 0; d < hd; ++d) o[qi * hd + d] = fa::finalize(acc[d], l);
+    }
+  }
+}
+// rows of t: q_lo, q_hi, k_lo, k_hi
+void h_tile_live(const int32_t* t, int causal, int window, int32_t* out,
+                 int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = fa::tile_live(t[4 * i], t[4 * i + 1], t[4 * i + 2],
+                           t[4 * i + 3], causal, window);
+}
+// one chunk, one head: x (L, P), dt/cum (L), B/C (L, N) -> y (L, P)
+void h_ssd(const float* x, const float* dt, const float* cum,
+           const float* B, const float* C, float* y, int L, int P, int N) {
+  for (int i = 0; i < L; ++i)
+    for (int p = 0; p < P; ++p) {
+      float acc = 0.0f;
+      for (int j = 0; j < L; ++j) {
+        float cb = 0.0f;
+        for (int n = 0; n < N; ++n) cb += C[i * N + n] * B[j * N + n];
+        acc += ssd::score(cb, cum[i], cum[j], dt[j], i, j) * x[j * P + p];
+      }
+      y[i * P + p] = acc;
+    }
+}
+void h_decay(const float* cum, float* out, int L) {
+  for (int i = 0; i < L; ++i)
+    for (int j = 0; j < L; ++j) out[i * L + j] = ssd::decay(cum[i], cum[j], i, j);
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host harness cannot be built")
+    d = tmp_path_factory.mktemp("csrc_lm")
+    (d / "shim.cpp").write_text(SHIM)
+    so = d / "libshim.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall",
+                    "-Werror",
+                    "-I", str(KERNELS / "flash_attention" / "csrc"),
+                    "-I", str(KERNELS / "mamba2_scan" / "csrc"),
+                    str(d / "shim.cpp"), "-o", str(so)], check=True)
+    return ctypes.CDLL(str(so))
+
+
+def _p(a: np.ndarray):
+    assert a.flags.c_contiguous
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.mark.parametrize("S,T,hd,causal,window,bq,bk", [
+    (128, 128, 16, True, None, 64, 64),
+    (100, 100, 80, True, None, 64, 64),     # ragged q and k tiles
+    (100, 100, 16, False, None, 64, 64),
+    (200, 200, 16, True, 48, 64, 64),       # skipped tiles on both sides
+    (90, 130, 24, False, 32, 32, 64),
+    (70, 70, 128, True, 7, 16, 16),
+])
+def test_flash_tile_walk_matches_plain(lib, S, T, hd, causal, window, bq,
+                                       bk):
+    rng = np.random.default_rng(S * T + hd)
+    q, k, v = (rng.standard_normal((n, hd)).astype(np.float32)
+               for n in (S, T, T))
+    out = np.empty_like(q)
+    lib.h_flash(_p(q), _p(k), _p(v), _p(out), S, T, hd, int(causal),
+                window or 0, bq, bk)
+    want = attention_ref(*(torch.from_numpy(a)[None, None]
+                           for a in (q, k, v)),
+                         causal=causal, window=window)[0, 0]
+    np.testing.assert_allclose(out, want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 16),
+                                           (True, 5), (True, 64)])
+def test_tile_live_is_exact(lib, causal, window):
+    """A tile is skipped exactly when no pair in it is in band."""
+    rng = np.random.default_rng(window)
+    n = 3000
+    q_lo = rng.integers(0, 300, n)
+    k_lo = rng.integers(0, 300, n)
+    tiles = np.stack([q_lo, q_lo + rng.integers(0, 40, n), k_lo,
+                      k_lo + rng.integers(0, 40, n)], 1).astype(np.int32)
+    out = np.empty(n, np.int32)
+    lib.h_tile_live(_p(tiles), int(causal), window, _p(out), n)
+    for (a, b, c, d), got in zip(tiles, out):
+        qi = np.arange(a, b + 1)[:, None]
+        kj = np.arange(c, d + 1)[None, :]
+        band = np.ones((qi.size, kj.size), bool)
+        if causal:
+            band &= kj <= qi
+        if window:
+            band &= qi - kj < window
+        assert bool(got) == bool(band.any()), (a, b, c, d)
+
+
+@pytest.mark.parametrize("L,P,N", [(64, 16, 8), (40, 8, 16), (17, 5, 3)])
+def test_ssd_score_matches_plain(lib, L, P, N):
+    rng = np.random.default_rng(L + P + N)
+    x = rng.standard_normal((L, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal(L))).astype(np.float32)
+    cum = np.cumsum(-np.log1p(np.exp(rng.standard_normal(L)))).astype(
+        np.float32)
+    B, C = (rng.standard_normal((L, N)).astype(np.float32) for _ in "BC")
+    y = np.empty_like(x)
+    lib.h_ssd(_p(x), _p(dt), _p(cum), _p(B), _p(C), _p(y), L, P, N)
+    want = intra_chunk_ref(torch.from_numpy(x)[None, :, None],
+                           torch.from_numpy(dt)[None, :, None],
+                           torch.from_numpy(cum)[None, :, None],
+                           torch.from_numpy(B)[None],
+                           torch.from_numpy(C)[None])[0, :, 0]
+    np.testing.assert_allclose(y, want.numpy(), rtol=1e-5, atol=1e-5)
+    dec = np.empty((L, L), np.float32)
+    lib.h_decay(_p(cum), _p(dec), L)
+    c = torch.from_numpy(cum)
+    np.testing.assert_allclose(
+        dec, torch.tril(torch.exp(c[:, None] - c[None, :])).numpy(),
+        rtol=1e-6)

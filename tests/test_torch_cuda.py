@@ -4,6 +4,9 @@ Marked ``cuda``: without a CUDA device every test here skips.  On a
 machine with one, run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (no jax needed).  Integers must be bit-identical, energy and power agree
 at rtol=1e-5 (the bound the reference sets between its two backends).
+The language-model kernels agree with their plain versions at the JAX
+kernel tests' tolerances: attention 2e-5 in float32 and 2e-2 in
+bfloat16, the intra-chunk SSD 2e-5.
 """
 import numpy as np
 import pytest
@@ -99,3 +102,116 @@ def test_sweep_rejects_a_block_the_kernel_cannot_launch(gpu, prof):
         dse.sweep(programs=progs, profile=prof, hw_configs=hws,
                   mem_images=images, max_steps=64, blk_b=too_many,
                   device=gpu)
+
+
+# ---- the language-model kernels ---------------------------------------
+
+def _attn_inputs(gpu, B, S, T, H, KV, hd, dtype, seed=0):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    return [torch.randn(B, n, h, hd, device=gpu, generator=g).to(dtype)
+            for n, h in ((S, H), (T, KV), (T, KV))]
+
+
+@pytest.mark.parametrize("S,T,H,KV,hd,dtype,causal,window", [
+    (256, 256, 4, 4, 80, torch.bfloat16, True, None),
+    (256, 256, 4, 4, 16, torch.float32, True, None),
+    (256, 256, 4, 4, 128, torch.float32, True, None),
+    (200, 200, 4, 2, 80, torch.float32, True, None),
+    (200, 200, 4, 4, 80, torch.float32, False, None),
+    (300, 300, 2, 2, 40, torch.float32, True, 70),
+    (100, 300, 4, 1, 24, torch.bfloat16, False, None),
+])
+def test_flash_kernel_matches_plain(gpu, S, T, H, KV, hd, dtype, causal,
+                                    window):
+    from repro_torch.kernels.flash_attention.ops import attention
+    q, k, v = _attn_inputs(gpu, 2, S, T, H, KV, hd, dtype)
+    before = attention.launches
+    got = attention(q, k, v, causal=causal, window=window)
+    assert attention.launches == before + 1
+    want = attention(q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_head_dim_over_128(gpu):
+    from repro_torch.kernels.flash_attention.ops import attention
+    q, k, v = _attn_inputs(gpu, 1, 64, 64, 2, 2, 136, torch.float32)
+    before = attention.launches
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        attention(q, k, v)
+    assert attention.launches == before
+
+
+@pytest.mark.parametrize("G,L,H,P,N", [(6, 64, 8, 64, 64), (3, 40, 5, 16, 16),
+                                       (2, 64, 3, 50, 70)])
+def test_ssd_kernel_matches_plain(gpu, G, L, H, P, N):
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    g = torch.Generator(device=gpu).manual_seed(G * L)
+    x = torch.randn(G, L, H, P, device=gpu, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g))
+    cum = torch.cumsum(-torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g)), dim=1)
+    Bm, Cm = (torch.randn(G, L, N, device=gpu, generator=g) for _ in "BC")
+    before = ssd_intra_chunk.launches
+    got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    assert ssd_intra_chunk.launches == before + 1
+    want = ssd_intra_chunk(*(t.cpu() for t in (x, dt, cum, Bm, Cm)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_smoke_zamba2_on_gpu_matches_cpu(gpu):
+    """The smoke model's prefill and three teacher-forced decode steps,
+    card against host with the same weights; f32 sums in another order:
+    1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import make_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("zamba2-2.7b")
+    mg, mc = make_model(cfg, device=gpu), make_model(cfg, device="cpu")
+    pg = mg.init(0)
+    pc = mc.init(0)
+    pc.load_state_dict({k: v.cpu() for k, v in pg.state_dict().items()})
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                             (1, 100)))
+    lg, cg = mg.prefill(pg, {"tokens": toks.to(gpu)}, context=128)
+    lc, cc = mc.prefill(pc, {"tokens": toks}, context=128)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for t in range(3):
+        nxt = lc[:, -1].argmax(-1)[:, None]
+        lg, cg = mg.decode(pg, nxt.to(gpu), cg, 100 + t)
+        lc, cc = mc.decode(pc, nxt, cc, 100 + t)
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_lm_kernels_repeat_bit_for_bit_and_match_card_plain(gpu, seed):
+    """Each kernel gives the same bits on a second launch with the same
+    inputs, and agrees with its plain version run on the card (TF32
+    off) at the tolerances above."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=gpu).manual_seed(100 + seed)
+    G, L, H, P, N = (6, 64, 8, 64, 64) if seed % 2 else (4, 37, 5, 32, 16)
+    x = torch.randn(G, L, H, P, device=gpu, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g))
+    cum = torch.cumsum(-torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g)), dim=1)
+    Bm, Cm = (torch.randn(G, L, N, device=gpu, generator=g) for _ in "BC")
+    y1 = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    y2 = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    assert torch.equal(y1, y2)
+    torch.testing.assert_close(y1, intra_chunk_ref(x, dt, cum, Bm, Cm),
+                               rtol=2e-5, atol=2e-5)
+    q, k, v = _attn_inputs(gpu, 1, 300, 300, 4, 2, 80, torch.bfloat16,
+                           seed)
+    o1 = attention(q, k, v)
+    assert torch.equal(o1, attention(q, k, v))

@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
           "core/trace.py", "core/detailed.py", "apps/__init__.py",
-          "apps/common.py", "apps/mibench.py", "apps/conv.py"]
+          "apps/common.py", "apps/mibench.py", "apps/conv.py",
+          "models/config.py", "configs/zamba2_2_7b.py"]
 
 
 def _kernel_pairs():
