@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's zamba2-2.7b serving path goes, on one GPU.
 
-    PYTHONPATH=src python3 scripts/profile_serve_torch.py [--layers 54]
+    PYTHONPATH=src python3 scripts/profile_serve_torch.py
 
 Builds zamba2-2.7b at full width (seeded random weights, bf16
 activations) on the CUDA device, warms up, then traces with
@@ -11,12 +11,12 @@ it prints the wall time (host clock around work that ends in a
 synchronise), the device's busy time (the sum of its kernels' and
 copies' times; one stream, so they do not overlap), the idle share, the
 time by kind (flash-attention kernel, SSD kernel, matrix products,
-the rest) and the ten ops with the most device time.  Needs a CUDA
+the f32->bf16 casts, the other copies, the rest) and the ten kernels
+with the most device time.  Needs a CUDA
 device; exits non-zero without one.
 """
 from __future__ import annotations
 
-import argparse
 import subprocess
 import sys
 import time
@@ -35,7 +35,10 @@ def device_us(evt) -> float:
 KINDS = (("flash_attention", ("flash_fwd",)),
          ("ssd_intra_chunk", ("ssd_intra_chunk_kernel",)),
          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "gemv")),
-         ("f32->bf16 casts and copies", ("copy", "memcpy", "memset")))
+         # PyTorch's float->bfloat16 conversion kernel: the per-call
+         # casts of the f32 weights (and of any f32 activation)
+         ("f32->bf16 casts", ("bfloat16_copy_kernel",)),
+         ("other copies", ("copy", "memcpy", "memset")))
 
 
 def report(what: str, prof, wall_s: float) -> None:
@@ -67,13 +70,10 @@ def report(what: str, prof, wall_s: float) -> None:
           f"{sum(e.count for e in rest)} launches")
     for e in sorted(kernels, key=device_us, reverse=True)[:10]:
         print(f"[{what}]     {device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
-              f"{e.key[:90]}")
+              f"{e.key[:160]}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=54)
-    args = ap.parse_args(argv)
+def main() -> int:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    cfg = get_config("zamba2-2.7b").replace(n_layers=args.layers)
+    cfg = get_config("zamba2-2.7b")
     dev = torch.device("cuda")
     model = make_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -107,7 +107,7 @@ def main(argv=None) -> int:
         model.prefill(params, {"tokens": tokens}, context=4096)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"prefill 2048 tokens, {args.layers} layers", prof, wall)
+    report(f"prefill 2048 tokens, {cfg.n_layers} layers", prof, wall)
 
     steps = 8
     with profile(activities=acts) as prof:
@@ -116,7 +116,7 @@ def main(argv=None) -> int:
             srv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"{steps} decode steps x 4 slots, {args.layers} layers", prof,
+    report(f"{steps} decode steps x 4 slots, {cfg.n_layers} layers", prof,
            wall)
     return 0
 

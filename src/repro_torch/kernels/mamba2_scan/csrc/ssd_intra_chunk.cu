@@ -20,7 +20,9 @@
 // and multiplies them into that head's x tile, 4x4 register tiles a
 // thread, writing y once.  Every input byte is read once per block and
 // the (L, L) intermediates never leave shared memory.  All arithmetic is
-// f32 FMA: the JAX tolerance is 1e-5, so no TF32 or bf16.
+// f32 FMA: the JAX tolerance is 1e-5, so no TF32 or bf16.  For L < 64 the
+// rows and columns past L are never read, so every shared word a thread
+// reads was written in the same launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,7 +86,10 @@ __global__ void __launch_bounds__(THREADS)
         cv[a] = i < L ? cs[i * N + n] : 0.0f;
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = bt[n * LD + tc + 16 * c];
+      for (int c = 0; c < 4; ++c) {
+        const int j = tc + 16 * c;
+        bv[c] = j < L ? bt[n * LD + j] : 0.0f;
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -130,7 +135,10 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < L; ++j) {
       float sv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sv[a] = sc[(tr + 16 * a) * LD + j];
+      for (int a = 0; a < 4; ++a) {
+        const int i = tr + 16 * a;
+        sv[a] = i < L ? sc[i * LD + j] : 0.0f;
+      }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int p = tc + 16 * c;
