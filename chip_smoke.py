@@ -8,9 +8,13 @@ Needs one CUDA device and nvcc; builds the kernels from the sources in
 src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
 
 1. device: the card's name and power limit, then the build of all four
-   kernel libraries, one nvcc each, in parallel;
+   kernel libraries, one nvcc each, in parallel; a [build] line per
+   redesigned kernel (the sweep kernel, the tensor-core flash kernel at
+   hd 80) with registers, shared memory and spills from ptxas, and
+   whether the flash library's SASS holds HGMMA (cuobjdump);
 2. the alu_dispatch kernel against its plain version on (1048576, 16)
-   seeded int32 planes, bit for bit;
+   seeded int32 planes, bit for bit, timed there and at the main path's
+   shape (one step of 16 PEs);
 3. the cgra_sweep kernel against its plain version on the card: 5
    MiBench kernels x 5 topologies x their 5 images, and Im2col-OP x 5
    topologies; integer state bit for bit, energy at rtol=1e-5;
@@ -25,7 +29,9 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    causal) and at f32 hd 16 and 128, a ragged S=1000, causal=False,
    window=512 and GQA 32/8 (2e-5 in f32, 2e-2 in bf16, TF32 off; bf16
    also within two bf16 steps of each element), timed beside its
-   plain version and scaled_dot_product_attention;
+   plain version and scaled_dot_product_attention: the bf16 route (the
+   tensor-core kernel) and the f32 route (the FMA kernel) at the main
+   shape;
 6. the intra-chunk SSD kernel against its plain version at
    (G=32, L=64, H=80, P=64, N=64) f32, rtol = atol = 2e-5, timed;
 7. the serving main path: zamba2-2.7b at full width (54 layers,
@@ -110,6 +116,44 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_report(log: str, kernel: str) -> str:
+    """ptxas -v's registers, shared memory and spills of the first kernel
+    whose mangled name contains ``kernel``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            rest = []
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "stack frame" in nxt or "Used" in nxt:
+                    rest.append(nxt.split(":", 1)[-1].strip())
+            return "; ".join(rest)
+    return "not in the build log (library built earlier)"
+
+
+def build_report(_build) -> None:
+    """Phase 1's [build] lines for the two redesigned kernels."""
+    import shutil
+    from repro_torch.kernels.flash_attention.ops import hopper_shared_memory
+    sweep = ptxas_report(_build.build_log("cgra_sweep"), "sweep_kernelILi16")
+    flash = ptxas_report(_build.build_log("flash_attention"),
+                         "flash_fwd_hopperILi80")
+    print(f"[build] cgra_sweep sweep_kernel<16>: {sweep}; no shared memory")
+    print(f"[build] flash_attention flash_fwd_hopper<80>: {flash}; dynamic "
+          f"shared memory {hopper_shared_memory(80)} bytes a block")
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
+                                            / "cuobjdump")
+    lib = _build.library("flash_attention")._name
+    try:
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+        print(f"[build] flash_attention SASS: {sass.count('HGMMA')} HGMMA "
+              f"instructions, {sass.count('UTMALDG')} UTMALDG (TMA loads)")
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"[build] flash_attention SASS: cuobjdump unavailable ({e})")
+
+
 def flash_phase(dev) -> dict:
     """Phase 5: the flash-attention kernel against its plain version."""
     import torch
@@ -180,19 +224,24 @@ def flash_phase(dev) -> dict:
                        reps=5)
     sdpa(qt, kt, vt, is_causal=True)
     lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    f32_ms = cuda_ms(lambda: attention(qf, kf, vf, causal=True), reps=5)
     pairs = S * (S + 1) // 2                  # the causal band
     b_ms, b_by = bound(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs,
                        BF16_OPS_PER_S)
     print(f"[flash] main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
+    print(f"[flash] main shape by route: bf16 (tensor cores) {ms:.4f} ms, "
+          f"f32 (FMA kernel) {f32_ms:.4f} ms, scaled_dot_product_attention "
+          f"bf16 {lib_ms:.4f} ms")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
             "launches": None, "max_abs_err": main_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "f32_ms": f32_ms,
             "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True}
 
 
@@ -421,6 +470,7 @@ def main() -> int:
     print(f"[build] all four kernel libraries ready in "
           f"{time.perf_counter() - t:.3f} s; cgra_sweep kernel "
           f"{kernel_attributes()}")
+    build_report(_build)
 
     # ---- 2. alu_dispatch vs alu_ref --------------------------------------
     rng = np.random.default_rng(0)
@@ -445,6 +495,16 @@ def main() -> int:
                     ALU_I32_OPS_PER_ELEMENT * n_el / I32_OPS_PER_S) * 1e3
     print(f"[alu_dispatch] {shape}: bit-identical; kernel {alu_ms:.4f} ms, "
           f"plain {alu_plain_ms:.4f} ms, bound {alu_bound:.4f} ms (bytes)")
+    # the main path's shape: core/cgra.py launches it once a simulated
+    # step, on the 16 PEs of one instruction
+    o1, a1, b1 = (x[:1].contiguous() for x in (ops, a, b))
+    check(torch.equal(alu_dispatch(o1, a1, b1), alu_ref(o1, a1, b1)),
+          "alu_dispatch differs from alu_ref at (1, 16)")
+    alu_step_ms = cuda_ms(lambda: alu_dispatch(o1, a1, b1), reps=200)
+    alu_step_bound = max(4 * 4 * 16 / HBM_BYTES_PER_S,
+                         ALU_I32_OPS_PER_ELEMENT * 16 / I32_OPS_PER_S) * 1e3
+    print(f"[alu_dispatch] (1, 16), the main path's shape: kernel "
+          f"{alu_step_ms:.5f} ms, bound {alu_step_bound:.3g} ms (bytes)")
 
     # ---- 3. cgra_sweep vs sweep_ref on the card --------------------------
     def engine_inputs(batch, prof, hws, images):
@@ -632,7 +692,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/cgra_step/kernel.py:68",
          "launches": launches["alu_dispatch"], "max_abs_err": alu_err,
          "ms": alu_ms, "plain_ms": alu_plain_ms, "bound_ms": alu_bound,
-         "bound_by": "bytes", "library_ms": None, "shape": list(shape)},
+         "bound_by": "bytes", "library_ms": None, "shape": list(shape),
+         "main_path_shape": [1, 16], "main_path_ms": alu_step_ms,
+         "main_path_bound_ms": alu_step_bound},
         flash_entry, ssd_entry,
     ]
     print(f"[summary] profile on the card {prof_cuda_t:.3f} s; main sweep "

@@ -35,12 +35,17 @@ SOURCES: Dict[str, Path] = {
     / "flash_attention.cu",
     "ssd_intra_chunk": _PKG / "mamba2_scan" / "csrc" / "ssd_intra_chunk.cu",
 }
+# ptxas reports each kernel's registers, shared memory and spills; the
+# report is kept beside the library (``build_log``)
+_PTXAS_V = ["-Xptxas", "-v"]
 # library name -> its flags beyond NVCC_FLAGS (the sweep kernel also
-# includes the ALU header of cgra_step/csrc)
+# includes the ALU header of cgra_step/csrc; the flash library links the
+# driver API for cuTensorMapEncodeTiled, against the toolkit's stub)
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "cgra_alu": _NO_FMAD,
-    "cgra_sweep": _NO_FMAD + ["-I", str(_PKG / "cgra_step" / "csrc")],
-    "flash_attention": [],
+    "cgra_sweep": _NO_FMAD + _PTXAS_V
+    + ["-I", str(_PKG / "cgra_step" / "csrc")],
+    "flash_attention": _PTXAS_V + ["-lcuda"],
     "ssd_intra_chunk": [],
 }
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -56,6 +61,14 @@ def nvcc() -> str:
 
 def _flags(name: str) -> List[str]:
     return NVCC_FLAGS + EXTRA_FLAGS[name]
+
+
+def _link_dirs() -> List[str]:
+    """-L for the toolkit's libcuda stub, where the toolkit has one."""
+    root = Path(nvcc()).resolve().parents[1]
+    return [arg for d in (root / "lib64" / "stubs",
+                          root / "targets" / "x86_64-linux" / "lib" / "stubs")
+            if d.is_dir() for arg in ("-L", str(d))]
 
 
 def _lib_path(name: str) -> Path:
@@ -74,7 +87,10 @@ def _start(name: str):
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])]
+    flags = _flags(name)
+    libs = [f for f in flags if f.startswith("-l")]   # after the source
+    cmd = [nvcc(), *(f for f in flags if f not in libs), *_link_dirs(),
+           "-o", str(tmp), str(SOURCES[name]), *libs]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, tmp, proc
@@ -86,6 +102,7 @@ def _finish(name: str, out: Path, tmp, proc) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} "
                                f"(exit {proc.returncode}):\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent builder is harmless
     return out
 
@@ -94,6 +111,13 @@ def build_all() -> List[Path]:
     """Compile every kernel library not yet cached, all in parallel."""
     started = {n: _start(n) for n in SOURCES}
     return [_finish(n, *started[n]) for n in SOURCES]
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for library ``name`` (with ``-Xptxas -v`` the
+    registers, shared memory and spills of each kernel); "" if none."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -42,20 +42,22 @@ __host__ __device__ inline int32_t alu(int32_t op, int32_t a, int32_t b) {
   const uint32_t ua = static_cast<uint32_t>(a);
   const uint32_t ub = static_cast<uint32_t>(b);
   const int sh = b & 31;
-  switch (op) {
-    case OP_SADD: return static_cast<int32_t>(ua + ub);
-    case OP_SSUB: return static_cast<int32_t>(ua - ub);
-    case OP_SMUL: return static_cast<int32_t>(ua * ub);
-    case OP_SLL:  return static_cast<int32_t>(ua << sh);
-    case OP_SRL:  return static_cast<int32_t>(ua >> sh);
-    case OP_SRA:  return a >> sh;
-    case OP_LAND: return a & b;
-    case OP_LOR:  return a | b;
-    case OP_LXOR: return a ^ b;
-    case OP_SLT:  return a < b ? 1 : 0;
-    case OP_MV:   return a;
-    default:      return 0;
-  }
+  // a chain of selects, not a switch: neighbouring elements (the PEs
+  // of a warp) take different opcodes, and a switch would run its cases
+  // one after another
+  int32_t r = 0;
+  r = op == OP_SADD ? static_cast<int32_t>(ua + ub) : r;
+  r = op == OP_SSUB ? static_cast<int32_t>(ua - ub) : r;
+  r = op == OP_SMUL ? static_cast<int32_t>(ua * ub) : r;
+  r = op == OP_SLL ? static_cast<int32_t>(ua << sh) : r;
+  r = op == OP_SRL ? static_cast<int32_t>(ua >> sh) : r;
+  r = op == OP_SRA ? (a >> sh) : r;
+  r = op == OP_LAND ? (a & b) : r;
+  r = op == OP_LOR ? (a | b) : r;
+  r = op == OP_LXOR ? (a ^ b) : r;
+  r = op == OP_SLT ? (a < b ? 1 : 0) : r;
+  r = op == OP_MV ? a : r;
+  return r;
 }
 
 }  // namespace cgra

@@ -1,6 +1,6 @@
 // Per-lane helpers of the sweep kernel (cgra_sweep.cu), on host and device.
 //
-// Everything here is plain serial C++ over one design point's P PEs, so
+// Everything here is plain C++ over one design point's P PEs, so
 // a host-compiled harness (tests/test_torch_csrc_harness.py) checks it
 // against the plain PyTorch version without a GPU.  The semantics are
 // those of src/repro/kernels/cgra_sweep/kernel.py (`_operands`, `_dedup`,
@@ -43,19 +43,20 @@ __host__ __device__ inline int neighbour(int pe, int k, int rows, int cols) {
 __host__ __device__ inline int32_t select_operand(
     int32_t sel, int32_t imm, int32_t r0, int32_t r1, int32_t r2, int32_t r3,
     int32_t rout, int32_t rcl, int32_t rcr, int32_t rct, int32_t rcb) {
-  switch (sel) {
-    case SRC_IMM:  return imm;
-    case SRC_R0:   return r0;
-    case SRC_R1:   return r1;
-    case SRC_R2:   return r2;
-    case SRC_R3:   return r3;
-    case SRC_ROUT: return rout;
-    case SRC_RCL:  return rcl;
-    case SRC_RCR:  return rcr;
-    case SRC_RCT:  return rct;
-    case SRC_RCB:  return rcb;
-    default:       return 0;
-  }
+  // a chain of selects, not a switch: the PEs of a warp take different
+  // selectors, and a switch would run its cases one after another
+  int32_t v = 0;
+  v = sel == SRC_IMM ? imm : v;
+  v = sel == SRC_R0 ? r0 : v;
+  v = sel == SRC_R1 ? r1 : v;
+  v = sel == SRC_R2 ? r2 : v;
+  v = sel == SRC_R3 ? r3 : v;
+  v = sel == SRC_ROUT ? rout : v;
+  v = sel == SRC_RCL ? rcl : v;
+  v = sel == SRC_RCR ? rcr : v;
+  v = sel == SRC_RCT ? rct : v;
+  v = sel == SRC_RCB ? rcb : v;
+  return v;
 }
 
 // Bank of an address: interleaved -> addr mod n_banks; blocked ->
@@ -74,12 +75,59 @@ __host__ __device__ inline int32_t bank_of(int32_t addr, int32_t bus,
   return blk;
 }
 
+// The divisor of bank_of for a configuration: the bank count when
+// interleaved, the words of a bank when blocked.
+__host__ __device__ inline int32_t bank_divisor(int32_t interleaved,
+                                                int32_t n_banks,
+                                                int32_t mem_size) {
+  const int32_t nb = n_banks > 1 ? n_banks : 1;
+  if (interleaved > 0) return nb;
+  const int32_t bank_words = mem_size / nb;
+  return bank_words > 1 ? bank_words : 1;
+}
+
+// log2(m) for a power of two m > 0, else -1.
+__host__ __device__ inline int32_t pow2_shift(int32_t m) {
+  if (m <= 0 || (m & (m - 1)) != 0) return -1;
+  int32_t k = 0;
+  while ((1 << k) != m) ++k;
+  return k;
+}
+
+// floor_mod and floor_div by m, as a mask and an arithmetic shift when
+// m is a power of two (shift = pow2_shift(m) >= 0).
+__host__ __device__ inline int32_t mod_by(int32_t x, int32_t m,
+                                          int32_t shift) {
+  return shift >= 0 ? (x & (m - 1)) : floor_mod(x, m);
+}
+
+__host__ __device__ inline int32_t div_by(int32_t x, int32_t m,
+                                          int32_t shift) {
+  return shift >= 0 ? (x >> shift) : floor_div(x, m);
+}
+
+// bank_of with its divisor precomputed (bank_divisor, pow2_shift): the
+// kernel's per-step form, equal to bank_of for every address.
+__host__ __device__ inline int32_t bank_by(int32_t addr, int32_t bus,
+                                           int32_t interleaved,
+                                           int32_t n_banks, int32_t div,
+                                           int32_t shift) {
+  if (bus != BUS_N_TO_M) return 0;
+  if (interleaved > 0) return mod_by(addr, div, shift);
+  int32_t blk = div_by(addr, div, shift);
+  if (blk < 0) blk = 0;
+  if (blk > n_banks - 1) blk = n_banks - 1;
+  return blk;
+}
+
 __host__ __device__ inline int32_t dma_of(int32_t pe, int32_t dma_per_pe,
                                           int32_t cols) {
   return dma_per_pe > 0 ? pe : pe % cols;
 }
 
 // The contention model: greedy list scheduling in ascending PE order.
+// This serial form is the specification the kernel's warp-parallel form
+// (slot_start / slot_relax below) is held to.
 // Each request takes slot = max(bank_free[bank], dma_free[dma]) and
 // advances both to slot + 1; it completes at slot + t_mem.  The free
 // counters restart at 0 every instruction.  Banks are kept as a list of
@@ -117,7 +165,8 @@ __host__ __device__ inline void mem_schedule(
 }
 
 // Last writer wins: PE `pe`'s store lands unless a higher PE stores to
-// the same address in the same instruction.
+// the same address in the same instruction (the serial specification of
+// lands_by_match).
 __host__ __device__ inline bool store_lands(int pe, int P,
                                             const int32_t* is_store,
                                             const int32_t* addr) {
@@ -125,6 +174,72 @@ __host__ __device__ inline bool store_lands(int pe, int P,
   for (int q = pe + 1; q < P; ++q)
     if (is_store[q] && addr[q] == addr[pe]) return false;
   return true;
+}
+
+// ---- the warp-parallel forms of the two functions above -------------
+//
+// In the kernel each PE is one thread of a warp, and the sets below are
+// 32-bit masks over the warp's lanes, built by __ballot_sync and
+// __match_any_sync.  The functions take those masks, so a host loop that
+// builds the same masks (tests/test_torch_csrc_harness.py) runs the same
+// code as the device.
+
+__host__ __device__ inline unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+__host__ __device__ inline unsigned lanes_above(int lane) {
+  return ~((2u << lane) - 1u);   // 2u << 31 wraps to 0: no lane above 31
+}
+
+// Index of the highest set bit of a non-zero mask.
+__host__ __device__ inline int top_lane(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(m);
+#else
+  return 31 - __builtin_clz(m);
+#endif
+}
+
+__host__ __device__ inline int32_t popcount(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+// Last writer wins, from the lanes that store to this lane's address
+// (`same_addr_stores`): the store lands iff no higher lane is among them.
+__host__ __device__ inline bool lands_by_match(bool is_store,
+                                               unsigned same_addr_stores,
+                                               int lane) {
+  return is_store && (same_addr_stores & lanes_above(lane)) == 0;
+}
+
+// The greedy schedule of `mem_schedule` as a longest path: a request's
+// slot is one past the larger slot of its predecessor on the same bank
+// (`pred_bank`, the nearest lower lane of the mask) and on the same DMA
+// engine (`pred_dma`), or 0 without either.  Each mask holds the lower
+// requesting lanes that share this lane's bank or engine (0 for a lane
+// without a request).  slot_start is a lower bound that already
+// satisfies every chain alone (a lane's rank in its bank's and its
+// engine's queue), so relaxing from it only raises slots and stops at
+// the greedy schedule's, usually within one or two rounds.
+__host__ __device__ inline int32_t slot_start(unsigned pred_bank,
+                                              unsigned pred_dma) {
+  const int32_t a = popcount(pred_bank), b = popcount(pred_dma);
+  return a > b ? a : b;
+}
+
+// One relaxation round: the slot from the predecessors' current slots.
+__host__ __device__ inline int32_t slot_relax(unsigned pred_bank,
+                                              unsigned pred_dma,
+                                              int32_t bank_slot,
+                                              int32_t dma_slot) {
+  const int32_t a = pred_bank ? bank_slot + 1 : 0;
+  const int32_t b = pred_dma ? dma_slot + 1 : 0;
+  return a > b ? a : b;
 }
 
 // One PE's case-(vi) energy for one instruction, in uW*cc, with the

@@ -9,28 +9,46 @@
 //
 // Design.  One group of P threads per lane, one thread per processing
 // element (PE); P is a power of two <= 32, so with the 4x4 array two
-// lanes share a warp and talk through width-16 shuffles and ballots.
-// Registers and ROUT live in registers.  The lane's memory image stays in
-// device memory and is updated in place; the fused instruction-row table
-// is read-only.  Each lane loops until its own EXIT, the max_steps
-// budget or the end of the chunk, so the early exit that the TPU engine
-// did on the host per chunk happens per lane here; frozen lanes never
-// change, so results equal the chunked reference for every chunk size.
-// Per step a PE: fetches its slot of the row, reads operands (own
+// lanes share a warp.  Registers and ROUT live in registers.  Each lane
+// loops until its own EXIT, the max_steps budget or the end of the
+// chunk, so the early exit that the TPU engine did on the host per chunk
+// happens per lane here; frozen lanes never change, so results equal the
+// chunked reference for every chunk size.  Per step a PE fetches its
+// slot of the fused row (read-only loads), reads operands (own
 // registers, immediates, neighbours' ROUT by shuffle), loads from the
-// pre-step image, then -- after the group has loaded -- lands its store
-// if no higher PE stores to the same word; PE 0 runs the serial
-// ascending-PE bank/DMA scheduler for the group; the ALU is
-// cgra::alu from the shared header; latency is a max-reduction, the
-// branch winner the lowest set bit of a ballot, the energy a sum.
+// pre-step image and runs cgra::alu from the shared header.  Latency is
+// a max-reduction, the branch winner the lowest set bit of a ballot, the
+// energy a shuffle-tree sum.
 //
 // What bounds it on an H100: integer instructions.  A lane-step is a few
-// hundred dependent integer operations per PE (operand select, ALU,
-// address, dedup, the serial scheduler, control, energy) against a few
-// words of memory traffic, so the bound is the int32 issue rate, not
-// bytes.  There is no matrix product, so wgmma and TMA do not apply.
-// Making it fast (images in shared memory, a parallel scheduler, fewer
-// warp barriers) is later work.
+// hundred integer operations per PE against a few words of memory
+// traffic, so the bound is the int32 issue rate, not bytes; there is no
+// matrix product, so wgmma and TMA do not apply.  What it meets first is
+// the latency of one step's dependent chain, hidden only by lanes in
+// flight, so every exchange between the PEs of a lane stays in
+// registers and the chain is kept short:
+//  - store arbitration by __match_any_sync on the address: a store lands
+//    iff no higher storing PE matched (cgra::lands_by_match);
+//  - the contention scheduler warp-parallel: each request's predecessors
+//    on its bank and its DMA engine come from __match_any_sync, and
+//    slots relax by shuffles from each request's rank in its queues
+//    until a vote shows no change (cgra::slot_start, cgra::slot_relax);
+//    the result is the serial greedy schedule's (cgra::mem_schedule),
+//    bit for bit;
+//  - two warp barriers a step: loads before stores, stores before the
+//    next step's loads;
+//  - operand select and ALU as chains of selects (the PEs of a warp run
+//    different opcodes, and a switch would diverge), divisions by the
+//    image size and the bank divisor as masks and shifts when they are
+//    powers of two, and P = 16 fixed at compile time;
+//  - __launch_bounds__(1024): at most 64 registers, so two blocks of 32
+//    lanes fit an SM.
+// The fused row table stays in device memory, read through the
+// read-only path: the main path's buckets hold 175-492 KB of rows, more
+// than a block's shared memory leaves for two blocks an SM.  The images
+// stay in device memory too, updated in place: copied into shared memory
+// for each chunk (at most 14 lanes of 16 KB a block) the campaign runs
+// slower (scripts/hopper_kernel_variants.py, PERF.md).
 #include <cuda_runtime.h>
 
 #include "cgra_alu.cuh"
@@ -44,7 +62,7 @@ enum { F_OPS, F_DEST, F_SRCA, F_SRCB, F_IMM, F_ISLD, F_ISST, F_WR, F_KA,
 // Columns of the per-lane integer hardware descriptor.
 enum { H_SMUL_LAT, H_BUS, H_INTERLEAVED, H_N_BANKS, H_DMA_PER_PE, H_T_MEM,
        NH };
-constexpr int kSmemPerPe = 7;   // addr, is_mem, is_store, done, scratch x3
+constexpr int kMaxThreads = 1024;   // launch bound: <= 64 registers
 
 struct SweepArgs {
   const int32_t* tab;     // (n_rows, NF, P) fused rows
@@ -77,26 +95,24 @@ __device__ __forceinline__ int64_t clamp_row(int64_t row, int64_t n) {
   return row < 0 ? 0 : (row >= n ? n - 1 : row);
 }
 
-__global__ void sweep_kernel(SweepArgs s) {
-  extern __shared__ int32_t smem[];
-  const int P = s.rows * s.cols;
+// kP: the PEs of a lane when fixed at compile time (16, the 4x4 array of
+// the main path), or 0 to take rows * cols at run time.
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads) sweep_kernel(SweepArgs s) {
+  const int P = kP > 0 ? kP : s.rows * s.cols;
   const int slot_in_block = threadIdx.x / P;
   const int pe = threadIdx.x % P;
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * s.blk_b +
                        slot_in_block;
   if (lane >= s.n_lanes) return;            // the whole group leaves
   if (s.done[lane]) return;                 // frozen: nothing to do
-  // this lane's threads within the warp, for shuffles and ballots
-  const int first = (threadIdx.x & 31) & ~(P - 1);
+  // this PE's lane in the warp and its group's lanes, for shuffles,
+  // ballots and matches (absolute warp lanes throughout)
+  const int wl = threadIdx.x & 31;
+  const int first = wl & ~(P - 1);
   const unsigned gmask = P == 32 ? 0xffffffffu
                                  : ((1u << P) - 1u) << first;
-  const unsigned pe_bits = P == 32 ? 0xffffffffu : (1u << P) - 1u;
-
-  int32_t* s_addr = smem + slot_in_block * kSmemPerPe * P;
-  int32_t* s_mem = s_addr + P;
-  int32_t* s_st = s_addr + 2 * P;
-  int32_t* s_done = s_addr + 3 * P;
-  int32_t* s_scratch = s_addr + 4 * P;
+  const unsigned below = cgra::lanes_below(wl);
 
   // ---- lane state ----------------------------------------------------
   int32_t pc = s.pc[lane], t_cc = s.t_cc[lane], prev_pc = s.prev_pc[lane];
@@ -116,28 +132,40 @@ __global__ void sweep_kernel(SweepArgs s) {
   const int32_t lane_len = s.plen[gi_c];
   const int64_t base = static_cast<int64_t>(gi) * s.t_max;
   int32_t* mem = s.mem + lane * s.mem_size;
+  // divisions by the image size and the bank divisor, as masks and shifts
+  // when they are powers of two
+  const int32_t mem_shift = cgra::pow2_shift(s.mem_size);
+  const int32_t bank_div = cgra::bank_divisor(interleaved, n_banks,
+                                              s.mem_size);
+  const int32_t bank_shift = cgra::pow2_shift(bank_div);
   const int nbr_l = cgra::neighbour(pe, 0, s.rows, s.cols);
   const int nbr_r = cgra::neighbour(pe, 1, s.rows, s.cols);
   const int nbr_t = cgra::neighbour(pe, 2, s.rows, s.cols);
   const int nbr_b = cgra::neighbour(pe, 3, s.rows, s.cols);
+  // the lanes whose PE shares this PE's DMA engine (cgra::dma_of)
+  const unsigned col_lanes = __match_any_sync(gmask, pe % s.cols);
+  const unsigned dma_lanes = dma_per_pe > 0 ? 1u << wl : col_lanes;
 
   // switch-energy reference: the previous live instruction's slot
   bool has_prev = prev_pc >= 0;
   const int32_t* prow =
       s.tab + clamp_row(base + (prev_pc > 0 ? prev_pc : 0), s.n_rows) * NF * P +
       pe;
-  int32_t p_ops = prow[F_OPS * P], p_srca = prow[F_SRCA * P];
-  int32_t p_srcb = prow[F_SRCB * P];
+  int32_t p_ops = __ldg(prow + F_OPS * P), p_srca = __ldg(prow + F_SRCA * P);
+  int32_t p_srcb = __ldg(prow + F_SRCB * P);
 
   for (int k = 0; k < s.k_steps; ++k) {
     if (done || s.start + k >= s.max_steps) break;
     const int32_t* row = s.tab + clamp_row(base + pc, s.n_rows) * NF * P + pe;
-    const int32_t op = row[F_OPS * P], dest = row[F_DEST * P];
-    const int32_t src_a = row[F_SRCA * P], src_b = row[F_SRCB * P];
-    const int32_t imm = row[F_IMM * P];
-    const bool is_load = row[F_ISLD * P] > 0, is_store = row[F_ISST * P] > 0;
-    const bool writes = row[F_WR * P] > 0;
-    const int32_t kind_a = row[F_KA * P], kind_b = row[F_KB * P];
+    const int32_t op = __ldg(row + F_OPS * P), dest = __ldg(row + F_DEST * P);
+    const int32_t src_a = __ldg(row + F_SRCA * P);
+    const int32_t src_b = __ldg(row + F_SRCB * P);
+    const int32_t imm = __ldg(row + F_IMM * P);
+    const bool is_load = __ldg(row + F_ISLD * P) > 0;
+    const bool is_store = __ldg(row + F_ISST * P) > 0;
+    const bool writes = __ldg(row + F_WR * P) > 0;
+    const int32_t kind_a = __ldg(row + F_KA * P);
+    const int32_t kind_b = __ldg(row + F_KB * P);
 
     // ---- operands: neighbours' ROUT from the start of the step --------
     const int32_t rcl = __shfl_sync(gmask, rout, nbr_l, P);
@@ -151,20 +179,36 @@ __global__ void sweep_kernel(SweepArgs s) {
 
     // ---- memory: every load reads the pre-step image -------------------
     const bool direct = op == cgra::OP_LWD || op == cgra::OP_SWD;
-    const int32_t addr = cgra::floor_mod(direct ? imm : a, s.mem_size);
+    const int32_t addr = cgra::mod_by(direct ? imm : a, s.mem_size, mem_shift);
     const bool is_mem = is_load || is_store;
     const int32_t load_val = is_load ? mem[addr] : 0;
-    s_addr[pe] = addr;
-    s_mem[pe] = is_mem;
-    s_st[pe] = is_store;
-    __syncwarp(gmask);                      // all loaded, inputs shared
-    const bool lands = cgra::store_lands(pe, P, s_st, s_addr);
-    if (pe == 0)
-      cgra::mem_schedule(P, s.cols, s_mem, s_addr, bus, interleaved, n_banks,
-                         dma_per_pe, t_mem, s.mem_size, s_scratch, s_done);
-    __syncwarp(gmask);                      // schedule published
+    // last writer wins among the PEs storing to one address
+    const unsigned st_lanes = __ballot_sync(gmask, is_store) & gmask;
+    const unsigned same_addr = __match_any_sync(gmask, addr);
+    const bool lands = cgra::lands_by_match(is_store, same_addr & st_lanes,
+                                            wl);
+    // bank/DMA contention: longest path through each request's
+    // predecessors on its bank and on its DMA engine
+    const unsigned mem_lanes = __ballot_sync(gmask, is_mem) & gmask;
+    const int32_t bank = cgra::bank_by(addr, bus, interleaved, n_banks,
+                                       bank_div, bank_shift);
+    const unsigned same_bank = __match_any_sync(gmask, bank);
+    const unsigned pred_bank = is_mem ? same_bank & mem_lanes & below : 0u;
+    const unsigned pred_dma = is_mem ? dma_lanes & mem_lanes & below : 0u;
+    const int src_bank = pred_bank ? cgra::top_lane(pred_bank) : wl;
+    const int src_dma = pred_dma ? cgra::top_lane(pred_dma) : wl;
+    int32_t slot = cgra::slot_start(pred_bank, pred_dma);
+    for (;;) {
+      const int32_t next = cgra::slot_relax(
+          pred_bank, pred_dma, __shfl_sync(gmask, slot, src_bank),
+          __shfl_sync(gmask, slot, src_dma));
+      const bool changed = __any_sync(gmask, next != slot);
+      slot = next;
+      if (!changed) break;
+    }
+    const int32_t mem_done = is_mem ? slot + t_mem : 0;
+    __syncwarp(gmask);                      // all loads done before stores
     if (lands) mem[addr] = op == cgra::OP_SWD ? a : b;
-    const int32_t mem_done = s_done[pe];
 
     // ---- ALU + writeback ------------------------------------------------
     const int32_t result = is_load ? load_val : cgra::alu(op, a, b);
@@ -181,15 +225,13 @@ __global__ void sweep_kernel(SweepArgs s) {
                        (op == cgra::OP_BNE && a != b) ||
                        (op == cgra::OP_BLT && a < b) ||
                        (op == cgra::OP_BGE && a >= b) || op == cgra::OP_JUMP;
-    const unsigned taken_bits = (__ballot_sync(gmask, taken) >> first) &
-                                pe_bits;
-    const int32_t target =
-        __shfl_sync(gmask, imm, taken_bits ? __ffs(taken_bits) - 1 : 0, P);
-    int32_t next_pc = taken_bits ? target : pc + 1;
+    const unsigned taken_lanes = __ballot_sync(gmask, taken) & gmask;
+    const int32_t target = __shfl_sync(
+        gmask, imm, taken_lanes ? __ffs(taken_lanes) - 1 : wl);
+    int32_t next_pc = taken_lanes ? target : pc + 1;
     next_pc = next_pc < 0 ? 0 : (next_pc > lane_len - 1 ? lane_len - 1
                                                          : next_pc);
-    const bool exited =
-        ((__ballot_sync(gmask, op == cgra::OP_EXIT) >> first) & pe_bits) != 0;
+    const bool exited = __any_sync(gmask, op == cgra::OP_EXIT);
 
     // ---- fused case-(vi) energy ------------------------------------------
     const bool smul = op == cgra::OP_SMUL;
@@ -198,10 +240,10 @@ __global__ void sweep_kernel(SweepArgs s) {
     const float wait = static_cast<float>(lat - busy > 0 ? lat - busy : 0);
     const float active = static_cast<float>(busy - 1 > 0 ? busy - 1 : 0);
     float e = cgra::pe_energy(
-        s.p_dec[op], s.p_act[op], scale, gate, active, s.p_idle, wait,
-        s.e_src[kind_a], s.e_src[kind_b], has_prev && op != p_ops,
-        has_prev && src_a != p_srca, has_prev && src_b != p_srcb, s.e_sw_op,
-        s.e_sw_mux);
+        __ldg(s.p_dec + op), __ldg(s.p_act + op), scale, gate, active,
+        s.p_idle, wait, __ldg(s.e_src + kind_a), __ldg(s.e_src + kind_b),
+        has_prev && op != p_ops, has_prev && src_a != p_srca,
+        has_prev && src_b != p_srcb, s.e_sw_op, s.e_sw_mux);
     for (int o = P / 2; o > 0; o >>= 1)
       e += __shfl_xor_sync(gmask, e, o, P);
 
@@ -241,14 +283,29 @@ __global__ void sweep_kernel(SweepArgs s) {
   }
 }
 
+int launch(const SweepArgs& s, cudaStream_t stream) {
+  const int P = s.rows * s.cols;
+  if (P < 1 || P > 32 || (P & (P - 1)) != 0 || s.blk_b < 1 ||
+      s.blk_b * P > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (s.n_lanes <= 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((s.n_lanes + s.blk_b - 1) / s.blk_b);
+  if (P == 16)
+    sweep_kernel<16><<<blocks, s.blk_b * P, 0, stream>>>(s);
+  else
+    sweep_kernel<0><<<blocks, s.blk_b * P, 0, stream>>>(s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The compiled kernel's limits on the current device: the most threads a
-// block may have (registers allow fewer than 1024) and its registers per
-// thread.  Returns cudaGetLastError().
+// block may have and its registers per thread.  Returns
+// cudaGetLastError().
 extern "C" int cgra_sweep_attributes(int32_t* max_threads, int32_t* num_regs) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, sweep_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, sweep_kernel<16>);
   if (err != cudaSuccess) return static_cast<int>(err);
   *max_threads = attr.maxThreadsPerBlock;
   *num_regs = attr.numRegs;
@@ -267,18 +324,10 @@ extern "C" int cgra_sweep_chunk(
     int32_t* prev_pc, int32_t* n_exec, int64_t n_lanes, int32_t rows,
     int32_t cols, int32_t start, int32_t k_steps, int32_t max_steps,
     int32_t blk_b, void* stream) {
-  const int P = rows * cols;
-  if (P < 1 || P > 32 || (P & (P - 1)) != 0 || blk_b < 1 ||
-      blk_b * P > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_lanes <= 0) return 0;
-  SweepArgs s{tab, n_rows, t_max, plen, n_progs, p_dec, p_act, e_src,
-              p_idle, e_sw_op, e_sw_mux, mulzero, hw_i, hw_f, gidx, mem,
-              mem_size, regs, rout, pc, done, t_cc, e_acc, prev_pc, n_exec,
-              n_lanes, rows, cols, start, k_steps, max_steps, blk_b};
-  const int64_t blocks = (n_lanes + blk_b - 1) / blk_b;
-  const size_t smem = sizeof(int32_t) * kSmemPerPe * P * blk_b;
-  sweep_kernel<<<static_cast<unsigned>(blocks), blk_b * P, smem,
-                 static_cast<cudaStream_t>(stream)>>>(s);
-  return static_cast<int>(cudaGetLastError());
+  const SweepArgs s{tab, n_rows, t_max, plen, n_progs, p_dec, p_act, e_src,
+                    p_idle, e_sw_op, e_sw_mux, mulzero, hw_i, hw_f, gidx, mem,
+                    mem_size, regs, rout, pc, done, t_cc, e_acc, prev_pc,
+                    n_exec, n_lanes, rows, cols, start, k_steps, max_steps,
+                    blk_b};
+  return launch(s, static_cast<cudaStream_t>(stream));
 }

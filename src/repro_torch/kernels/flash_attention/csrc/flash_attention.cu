@@ -13,12 +13,18 @@
 // 4*H*hd*S(S+1)/2 = 21.5 GFLOP, 0.022 ms at the 989 TFLOP/s of the bf16
 // tensor cores, against 42 MB of q/k/v/o, 0.013 ms at 3.35 TB/s.
 //
-// What the design does about it: on the TPU the running max, the
-// denominator and the accumulator sit in VMEM scratch carried across a
-// sequential k-block grid axis.  Blocks here run in no order, so one
-// block of 256 threads owns a 64-row q-tile of one (batch, head) and
-// walks the k-tiles itself, skipping those outside the causal or window
-// band (`fa::tile_live`, the TPU kernel's `pl.when(live)`), so the causal
+// Two routes.  bf16 inputs with head_dim a multiple of 8 on 16-byte
+// boundaries (the serving path's) take the Hopper kernel of
+// flash_hopper.cuh: wgmma products on the tensor cores, TMA tile loads
+// into an mbarrier ring.  float32, and bf16 that TMA cannot address,
+// take the FMA kernel below.
+//
+// The FMA kernel: on the TPU the running max, the denominator and the
+// accumulator sit in VMEM scratch carried across a sequential k-block
+// grid axis.  Blocks here run in no order, so one block of 256 threads
+// owns a 64-row q-tile of one (batch, head) and walks the k-tiles
+// itself, skipping those outside the causal or window band
+// (`fa::tile_live`, the TPU kernel's `pl.when(live)`), so the causal
 // kernel does half the work.  Q and K tiles sit transposed in shared
 // memory and each thread computes a 4x4 register tile of scores (two
 // FMAs per shared load); thread (tr, tc) owns rows tr + 16i and the 16
@@ -26,14 +32,14 @@
 // and the output accumulator stay in registers.  The products run as
 // f32 FMAs on the CUDA cores: the float32 path must agree with the
 // plain version at 2e-5, which TF32 or bf16 tensor-core products would
-// not, so this first kernel is held to the 67 TFLOP/s f32 rate
-// (0.32 ms for the shape above).  wgmma for the bf16 path is later work.
-// The ragged last q- and k-tile are masked in the kernel: prompts of
-// any length reach it.
+// not, so it is held to the 67 TFLOP/s f32 rate (0.32 ms for the shape
+// above).  The ragged last q- and k-tile are masked in the kernel:
+// prompts of any length reach it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_hopper.cuh"
 #include "flash_tile.cuh"
 
 namespace {
@@ -220,9 +226,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, k, v, o as above; `window` <= 0 means no window; `bf16` selects
-// bfloat16 over float32.  Launches on `stream` and returns the launch's
-// cudaError_t (0 on success); refuses hd outside 1..128, H not a
-// multiple of KV and more than 65535 (batch, head) pairs.
+// bfloat16 over float32 (and the Hopper kernel where it applies).
+// Launches on `stream` and returns the launch's cudaError_t (0 on
+// success); refuses hd outside 1..128, H not a multiple of KV and more
+// than 65535 (batch, head) pairs.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int Tk, int H, int KV, int hd, int causal,
@@ -232,8 +239,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && fa_hopper::takes(q, k, v, o, hd))
+    return fa_hopper::dispatch(q, k, v, o, B, S, Tk, H, KV, hd, causal,
+                               window, st);
   return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, KV, hd,
                                         causal, window, st)
               : dispatch<float>(q, k, v, o, B, S, Tk, H, KV, hd, causal,
                                 window, st);
+}
+
+// Dynamic shared memory of the Hopper kernel for this head_dim, in bytes;
+// 0 where bf16 calls with this head_dim take the FMA kernel.
+extern "C" int flash_attention_hopper_smem(int hd) {
+  if (hd < 1 || hd > MAX_HD || hd % 8 != 0) return 0;
+  return fa_hopper::smem_bytes((hd + 15) / 16 * 16);
 }

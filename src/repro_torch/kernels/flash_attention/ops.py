@@ -3,8 +3,10 @@
 ``attention(q, k, v)`` takes q (B, S, H, hd) and k/v (B, T, KV, hd) as
 ``repro.kernels.flash_attention.ops.attention`` does.  For CUDA tensors
 it launches ``csrc/flash_attention.cu``, which resolves GQA by indexing
-(query head h reads kv head h // (H / KV)); for CPU tensors it expands
-the kv heads and runs the plain version ``ref.attention_ref``.  There is
+(query head h reads kv head h // (H / KV)) and runs bf16 inputs whose
+head_dim is a multiple of 8 on the tensor cores (``csrc/flash_hopper.cuh``),
+everything else on its FMA kernel; for CPU tensors it expands the kv
+heads and runs the plain version ``ref.attention_ref``.  There is
 no fallback from one to the other.  ``attention.launches`` counts the
 kernel launches.
 """
@@ -65,6 +67,15 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
                  "flash_attention_fwd")
     attention.launches += 1
     return out
+
+
+def hopper_shared_memory(hd: int) -> int:
+    """Bytes of dynamic shared memory the tensor-core kernel takes a block
+    at this head_dim (0 where bf16 calls take the FMA kernel)."""
+    fn = _build.library("flash_attention").flash_attention_hopper_smem
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_int
+    return fn(hd)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -6,7 +6,11 @@ and DMA mapping, the ascending-PE bank/DMA scheduler, last-writer-wins
 store arbitration, operand selection over the torus and the per-PE
 energy term -- lives in those headers as __host__ __device__ functions,
 so the C++ traps (truncating %, signed overflow, logical shifts, the
-scheduler order) show here, before any GPU runs them.
+scheduler order) show here, before any GPU runs them.  The kernel's
+warp-parallel scheduler and match-based store arbitration run here too:
+the shim builds the masks that __ballot_sync and __match_any_sync give
+the kernel, for a lane group at any offset in its warp, and relaxes the
+slots in rounds with the header's slot_start / slot_relax.
 """
 import ctypes
 import shutil
@@ -15,6 +19,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 # small tensors: intra-op threads only contend with the other test workers
@@ -59,11 +65,94 @@ void h_bank_dma(int P, int cols, const int32_t* addr, const int32_t* hw,
       dma[P * i + p] = dma_of(p, h[4], cols);
     }
 }
+// the kernel's per-step forms: bank_by and mod_by with precomputed
+// divisors, beside bank_of and floor_mod
+void h_bank_by(const int32_t* addr, const int32_t* hw, int32_t M,
+               int32_t* bank, int32_t* wrapped, int64_t n) {
+  const int32_t mem_shift = pow2_shift(M);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* h = hw + 6 * i;
+    const int32_t div = bank_divisor(h[2], h[3], M);
+    bank[i] = bank_by(addr[i], h[1], h[2], h[3], div, pow2_shift(div));
+    wrapped[i] = mod_by(addr[i], M, mem_shift);
+  }
+}
 void h_store_lands(int P, const int32_t* is_store, const int32_t* addr,
                    int32_t* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     for (int p = 0; p < P; ++p)
       out[P * i + p] = store_lands(p, P, is_store + P * i, addr + P * i);
+}
+// The kernel's warp-parallel forms, one lane group per instance at warp
+// offset (i % (32 / P)) * P: masks as __ballot_sync / __match_any_sync
+// build them, then the kernel's relaxation rounds.  rounds[i] counts
+// them, the last (no change) included.
+void h_mem_schedule_warp(int P, int cols, const int32_t* is_mem,
+                         const int32_t* addr, const int32_t* hw, int32_t M,
+                         int32_t* out, int32_t* rounds, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    const int first = static_cast<int>(i % (32 / P)) * P;
+    const int32_t* h = hw + 6 * i;
+    const int32_t* req = is_mem + P * i;
+    const int32_t* ad = addr + P * i;
+    int32_t bank[32];
+    unsigned mem_lanes = 0;
+    for (int p = 0; p < P; ++p) {
+      bank[p] = bank_of(ad[p], h[1], h[2], h[3], M);
+      if (req[p]) mem_lanes |= 1u << (first + p);
+    }
+    unsigned pb[32], pd[32];
+    int32_t slot[32], next[32];
+    for (int p = 0; p < P; ++p) {
+      unsigned same_bank = 0, cols_lanes = 0;
+      for (int q = 0; q < P; ++q) {
+        if (bank[q] == bank[p]) same_bank |= 1u << (first + q);
+        if (q % cols == p % cols) cols_lanes |= 1u << (first + q);
+      }
+      const unsigned dma_lanes = h[4] > 0 ? 1u << (first + p) : cols_lanes;
+      const unsigned below = lanes_below(first + p);
+      pb[p] = req[p] ? same_bank & mem_lanes & below : 0u;
+      pd[p] = req[p] ? dma_lanes & mem_lanes & below : 0u;
+      slot[p] = slot_start(pb[p], pd[p]);
+    }
+    int r = 0;
+    for (bool changed = true; changed;) {
+      changed = false;
+      for (int p = 0; p < P; ++p) {
+        const int sb = pb[p] ? top_lane(pb[p]) - first : p;
+        const int sd = pd[p] ? top_lane(pd[p]) - first : p;
+        next[p] = slot_relax(pb[p], pd[p], slot[sb], slot[sd]);
+        changed = changed || next[p] != slot[p];
+      }
+      for (int p = 0; p < P; ++p) slot[p] = next[p];
+      ++r;
+    }
+    for (int p = 0; p < P; ++p) out[P * i + p] = req[p] ? slot[p] + h[5] : 0;
+    rounds[i] = r;
+  }
+}
+void h_store_lands_warp(int P, const int32_t* is_store, const int32_t* addr,
+                        int32_t* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    const int first = static_cast<int>(i % (32 / P)) * P;
+    const int32_t* st = is_store + P * i;
+    const int32_t* ad = addr + P * i;
+    unsigned st_lanes = 0;
+    for (int p = 0; p < P; ++p)
+      if (st[p]) st_lanes |= 1u << (first + p);
+    for (int p = 0; p < P; ++p) {
+      unsigned same = 0;
+      for (int q = 0; q < P; ++q)
+        if (ad[q] == ad[p]) same |= 1u << (first + q);
+      out[P * i + p] = lands_by_match(st[p] != 0, same & st_lanes, first + p);
+    }
+  }
+}
+void h_lane_masks(int lane, uint32_t* below, uint32_t* above, int32_t* top,
+                  uint32_t m) {
+  *below = lanes_below(lane);
+  *above = lanes_above(lane);
+  *top = m ? top_lane(m) : -1;
 }
 // regs (n, 4, P), rout (n, P)
 void h_operands(int rows, int cols, const int32_t* sel, const int32_t* imm,
@@ -195,6 +284,25 @@ def test_bank_and_dma_mapping(lib):
         dma, np.where(hw_rows[:, 4:5] > 0, pe, pe % cols))
 
 
+@pytest.mark.parametrize("M", [4096, 4000, 1, 64, 96])
+def test_bank_by_equals_bank_of(lib, M):
+    """The kernel's mask-and-shift forms equal bank_of and floor_mod on
+    every address, in range or not, for power-of-two sizes and others."""
+    rng = np.random.default_rng(M)
+    n = 20000
+    hw, hw_rows = _hw_rows(rng, n)
+    addr = _i32(np.concatenate([rng.integers(I32_MIN, I32_MAX, n // 2),
+                                rng.integers(-2 * M, 2 * M, n - n // 2)]))
+    bank, wrapped = np.empty(n, np.int32), np.empty(n, np.int32)
+    lib.h_bank_by(_p(addr), _p(hw_rows), ctypes.c_int32(M), _p(bank),
+                  _p(wrapped), ctypes.c_int64(n))
+    np.testing.assert_array_equal(
+        bank, memory.bank_of(torch.as_tensor(addr)[:, None], hw,
+                             M).numpy()[:, 0])
+    np.testing.assert_array_equal(
+        wrapped, torch.remainder(torch.as_tensor(addr), M).numpy())
+
+
 def test_last_writer_wins(lib):
     rng = np.random.default_rng(5)
     n, P = 500, 16
@@ -252,3 +360,98 @@ def test_pe_energy_rounds_like_the_plain_version(lib):
             + t[:, 5] * t[:, 6] + t[:, 7] + t[:, 8] + c[:, 0] * t[:, 9]
             + (c[:, 1].float() + c[:, 2].float()) * t[:, 10])
     np.testing.assert_array_equal(out, want.numpy())
+
+
+def _serial_and_warp(lib, P, cols, is_mem, addr, hw_rows, M):
+    n = is_mem.shape[0]
+    serial, warp = (np.empty((n, P), np.int32) for _ in range(2))
+    rounds = np.empty(n, np.int32)
+    lib.h_mem_schedule(P, cols, _p(_i32(is_mem)), _p(addr), _p(hw_rows),
+                       ctypes.c_int32(M), _p(serial), ctypes.c_int64(n))
+    lib.h_mem_schedule_warp(P, cols, _p(_i32(is_mem)), _p(addr),
+                            _p(hw_rows), ctypes.c_int32(M), _p(warp),
+                            _p(rounds), ctypes.c_int64(n))
+    return serial, warp, rounds
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1),
+       shape=st.sampled_from([(4, 4), (2, 4), (1, 2), (4, 8), (2, 2),
+                              (1, 1), (2, 8), (8, 4)]),
+       bus=st.sampled_from([0, 1]), interleaved=st.booleans(),
+       n_banks=st.sampled_from([1, 2, 3, 4, 8, 16, 32, 256]),
+       dma_per_pe=st.booleans(), t_mem=st.integers(1, 5),
+       density=st.floats(0.0, 1.0),
+       spread=st.sampled_from([1, 3, 16, 48, 4096]))
+def test_warp_parallel_scheduler_equals_serial(lib, seed, shape, bus,
+                                               interleaved, n_banks,
+                                               dma_per_pe, t_mem, density,
+                                               spread):
+    """The kernel's relaxation, run on the masks the warp intrinsics
+    give, equals the serial greedy schedule and the plain version's
+    completion times bit for bit, in at most P + 1 rounds."""
+    rows, cols = shape
+    P, M, n = rows * cols, 4096, 300
+    rng = np.random.default_rng(seed)
+    hw = hwconfig.stack_configs([hwconfig.HwConfig(
+        bus=bus, interleaved=int(interleaved), n_banks=n_banks,
+        dma_per_pe=int(dma_per_pe), t_mem=t_mem)] * n)
+    hw_rows = _i32(np.stack([getattr(hw, f).numpy() for f in
+                             ("smul_lat", "bus", "interleaved", "n_banks",
+                              "dma_per_pe", "t_mem")], axis=1))
+    is_mem = rng.random((n, P)) < density
+    addr = _i32((rng.integers(-M, M, (n, 1))
+                 + rng.integers(0, spread, (n, P))) % M)
+    serial, warp, rounds = _serial_and_warp(lib, P, cols, is_mem, addr,
+                                            hw_rows, M)
+    np.testing.assert_array_equal(warp, serial)
+    want = memory.mem_completion_times(torch.as_tensor(is_mem),
+                                       torch.as_tensor(addr), hw, M, cols)
+    np.testing.assert_array_equal(warp, want.numpy())
+    assert rounds.min() >= 1 and rounds.max() <= P + 1
+
+
+def test_warp_parallel_scheduler_on_the_topologies(lib):
+    """Every topology and bank count of the test above's table of
+    configurations, many requests to few banks (deep queues)."""
+    rng = np.random.default_rng(21)
+    n, P, cols, M = 4000, 16, 4, 4096
+    hw, hw_rows = _hw_rows(rng, n)
+    is_mem = rng.random((n, P)) < 0.8
+    addr = _i32(rng.integers(0, 8, (n, P)) * rng.integers(1, 600, (n, 1)))
+    serial, warp, rounds = _serial_and_warp(lib, P, cols, is_mem, addr,
+                                            hw_rows, M)
+    np.testing.assert_array_equal(warp, serial)
+    # the start from each request's queue ranks settles most instructions
+    # in the first round, which only confirms them
+    assert np.mean(rounds <= 2) > 0.5
+
+
+@settings(max_examples=30, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1),
+       P=st.sampled_from([1, 2, 4, 8, 16, 32]),
+       n_addr=st.sampled_from([1, 2, 6, 4096]), density=st.floats(0.0, 1.0))
+def test_store_arbitration_by_match_equals_serial(lib, seed, P, n_addr,
+                                                  density):
+    rng = np.random.default_rng(seed)
+    n = 400
+    is_store = _i32(rng.random((n, P)) < density)
+    addr = _i32(rng.integers(0, n_addr, (n, P)))
+    serial, warp = (np.empty((n, P), np.int32) for _ in range(2))
+    lib.h_store_lands(P, _p(is_store), _p(addr), _p(serial),
+                      ctypes.c_int64(n))
+    lib.h_store_lands_warp(P, _p(is_store), _p(addr), _p(warp),
+                           ctypes.c_int64(n))
+    np.testing.assert_array_equal(warp, serial)
+
+
+def test_lane_masks(lib):
+    below, above = ctypes.c_uint32(), ctypes.c_uint32()
+    top = ctypes.c_int32()
+    for lane in range(32):
+        for m in (0, 1, 1 << lane, 0xFFFFFFFF, 0x80000000 | (1 << lane)):
+            lib.h_lane_masks(lane, ctypes.byref(below), ctypes.byref(above),
+                             ctypes.byref(top), ctypes.c_uint32(m))
+            assert below.value == (1 << lane) - 1
+            assert above.value == 0xFFFFFFFF & ~((2 << lane) - 1)
+            assert top.value == (m.bit_length() - 1 if m else -1)

@@ -1,14 +1,19 @@
 """The per-tile arithmetic of the language-model kernels, compiled for
 the host with g++ and held against the port's plain PyTorch versions.
 
-``flash_tile.cuh`` (band mask, k-tile skip test, online-softmax steps)
-and ``ssd_tile.cuh`` (decay and score of one (i, j) pair) are the
+``flash_tile.cuh`` (band mask, k-tile skip and no-mask tests,
+online-softmax steps, the split of a probability into two bfloat16
+terms) and ``ssd_tile.cuh`` (decay and score of one (i, j) pair) are the
 __host__ __device__ functions the CUDA kernels call.  The shim below
 runs the kernels' algorithms serially with them -- the flash kernel's
 q-tile / k-tile walk with its skipped tiles and ragged edges, the SSD
 kernel's C.B^T-then-scores product -- so a wrong mask, a skipped live
 tile or a mis-scaled online update shows here, before any GPU runs it.
-Tolerances are the JAX tests': 2e-5 for attention, 1e-5 for SSD.
+The bf16 walk is the Hopper kernel's arithmetic: bf16 q, k, v, scores
+in f32, the no-mask shortcut on full tiles, the softmax in log2 units
+(exp2f of one FMA), P split into two bf16 terms for the P.V product.  Tolerances are the JAX tests': 2e-5 for attention,
+1e-5 for SSD; the bf16 walk's output is held to two bf16 steps of each
+element, as chip_smoke.py holds the kernel.
 """
 import ctypes
 import shutil
@@ -76,6 +81,75 @@ void h_flash(const float* q, const float* k, const float* v, float* o,
       for (int d = 0; d < hd; ++d) o[qi * hd + d] = fa::finalize(acc[d], l);
     }
   }
+}
+// The Hopper kernel's walk for one head: q, k, v hold bf16 values (as
+// f32), q-tiles of bq, k-tiles of bk, masks skipped on full tiles, P.V
+// over the two bf16 terms of each probability; o in f32.
+void h_flash_split(const float* q, const float* k, const float* v, float* o,
+                   int S, int T, int hd, int causal, int window, int bq,
+                   int bk) {
+  const float c = fa::LOG2E / sqrtf(static_cast<float>(hd));
+  std::vector<float> s(bk), p_hi(bk), p_lo(bk), acc(hd);
+  std::vector<char> live(bk);
+  for (int q_lo = 0; q_lo < S; q_lo += bq) {
+    const int q_hi = std::min(q_lo + bq, S) - 1;
+    for (int qi = q_lo; qi <= q_hi; ++qi) {
+      float m = fa::NEG_INF, l = 0.0f;
+      std::fill(acc.begin(), acc.end(), 0.0f);
+      for (int k_lo = 0; k_lo < T; k_lo += bk) {
+        const int k_hi = std::min(k_lo + bk, T) - 1;
+        if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window)) continue;
+        const bool full =
+            fa::tile_full(q_lo, q_hi, k_lo, k_lo + bk - 1, T, causal, window);
+        float mx = fa::NEG_INF;
+        for (int j = 0; j < bk; ++j) {
+          const int kj = k_lo + j;
+          live[j] = full || fa::in_band(qi, kj, T, causal, window);
+          float dot = 0.0f;
+          if (kj < T)
+            for (int d = 0; d < hd; ++d) dot += q[qi * hd + d] * k[kj * hd + d];
+          s[j] = dot;                   // raw: the scale is in c
+          if (live[j]) mx = std::max(mx, s[j]);
+        }
+        const float alpha = fa::rescale_log2(m, mx, c);
+        float sum = 0.0f;
+        for (int j = 0; j < bk; j += 2) {
+          const float p0 = fa::prob_log2(s[j], c, m, live[j]);
+          const float p1 = fa::prob_log2(s[j + 1], c, m, live[j + 1]);
+          sum += p0 + p1;
+          uint32_t hi, lo;
+          fa::split_bf16x2(p0, p1, hi, lo);
+          p_hi[j] = fa::bf16_value(hi & 0xffff);
+          p_hi[j + 1] = fa::bf16_value(hi >> 16);
+          p_lo[j] = fa::bf16_value(lo & 0xffff);
+          p_lo[j + 1] = fa::bf16_value(lo >> 16);
+        }
+        l = l * alpha + sum;
+        for (int d = 0; d < hd; ++d) {
+          float a = acc[d] * alpha;
+          for (int j = 0; j < bk && k_lo + j < T; ++j)
+            a += p_hi[j] * v[(k_lo + j) * hd + d] +
+                 p_lo[j] * v[(k_lo + j) * hd + d];
+          acc[d] = a;
+        }
+      }
+      for (int d = 0; d < hd; ++d) o[qi * hd + d] = fa::finalize(acc[d], l);
+    }
+  }
+}
+void h_bf16_split(const float* x, uint16_t* bits, uint16_t* hi,
+                  uint16_t* lo, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    bits[i] = fa::bf16_bits(x[i]);
+    fa::split_bf16(x[i], hi[i], lo[i]);
+  }
+}
+// rows of t: q_lo, q_hi, k_lo, k_hi
+void h_tile_full(const int32_t* t, int T, int causal, int window,
+                 int32_t* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = fa::tile_full(t[4 * i], t[4 * i + 1], t[4 * i + 2],
+                           t[4 * i + 3], T, causal, window);
 }
 // rows of t: q_lo, q_hi, k_lo, k_hi
 void h_tile_live(const int32_t* t, int causal, int window, int32_t* out,
@@ -194,3 +268,84 @@ def test_ssd_score_matches_plain(lib, L, P, N):
     np.testing.assert_allclose(
         dec, torch.tril(torch.exp(c[:, None] - c[None, :])).numpy(),
         rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal,window,T", [(True, 0, 400), (False, 16, 250),
+                                             (True, 5, 300), (False, 0, 90)])
+def test_tile_full_is_exact(lib, causal, window, T):
+    """The mask is skipped exactly when every pair of the tile is in
+    band, the key past the sequence's end included."""
+    rng = np.random.default_rng(window + T)
+    n = 3000
+    q_lo = rng.integers(0, 300, n)
+    k_lo = rng.integers(0, 300, n)
+    tiles = np.stack([q_lo, q_lo + rng.integers(0, 40, n), k_lo,
+                      k_lo + rng.integers(0, 40, n)], 1).astype(np.int32)
+    out = np.empty(n, np.int32)
+    lib.h_tile_full(_p(tiles), T, int(causal), window, _p(out), n)
+    for (a, b, c, d), got in zip(tiles, out):
+        qi = np.arange(a, b + 1)[:, None]
+        kj = np.arange(c, d + 1)[None, :]
+        band = np.broadcast_to(kj < T, (qi.size, kj.size)).copy()
+        if causal:
+            band &= kj <= qi
+        if window:
+            band &= qi - kj < window
+        assert bool(got) == bool(band.all()), (a, b, c, d)
+
+
+def test_bf16_rounding_and_split_match_torch(lib):
+    """bf16_bits rounds as torch's float32 -> bfloat16 cast (to nearest,
+    ties to even, subnormals included); hi + lo carries 16 significant
+    bits: |p - hi - lo| <= 2^-17 |p|."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        rng.random(20000), np.exp(-rng.uniform(0, 100, 20000)),
+        rng.standard_normal(20000) * 1e3,
+        np.array([0.0, 1.0, 0.5, 1e-40, 3e-39, 1.00390625, 1.01171875,
+                  np.nextafter(1.0, 2.0)])]).astype(np.float32)
+    # ties: bit patterns with the low half exactly 0x8000
+    ties = (rng.integers(0x3F00, 0x4100, 2000).astype(np.uint32) << 16
+            | 0x8000).view(np.float32)
+    x = np.ascontiguousarray(np.concatenate([x, ties]))
+    n = x.size
+    bits, hi, lo = (np.empty(n, np.uint16) for _ in range(3))
+    lib.h_bf16_split(_p(x), _p(bits), _p(hi), _p(lo), ctypes.c_int64(n))
+    t = torch.from_numpy(x)
+    want = t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(bits, want)
+    np.testing.assert_array_equal(hi, want)
+    hi_f = torch.from_numpy(hi.view(np.int16)).view(torch.bfloat16).float()
+    lo_f = torch.from_numpy(lo.view(np.int16)).view(torch.bfloat16).float()
+    np.testing.assert_array_equal(
+        lo_f.numpy(), (t - hi_f).to(torch.bfloat16).float().numpy())
+    p = t.double()
+    resid = (p - hi_f.double() - lo_f.double()).abs()
+    normal = p.abs() > 1e-30     # the split's bound is relative
+    assert bool((resid[normal] <= 2.0 ** -17 * p.abs()[normal]).all())
+
+
+@pytest.mark.parametrize("S,T,hd,causal,window,bq,bk", [
+    (200, 200, 80, True, None, 128, 64),    # ragged, diagonal tiles
+    (130, 130, 24, False, None, 128, 64),   # hd not a multiple of 16
+    (300, 300, 64, True, 70, 128, 64),      # window band, skipped tiles
+    (100, 260, 128, False, None, 128, 64),
+])
+def test_flash_bf16_split_walk_matches_plain(lib, S, T, hd, causal, window,
+                                             bq, bk):
+    """The Hopper kernel's bf16 arithmetic on the host, against the
+    plain version on the same bf16 inputs: 2e-2, and within two bf16
+    steps of each element once rounded to bf16 as the kernel's output
+    is."""
+    rng = np.random.default_rng(S + T + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, hd)).astype(
+        np.float32)).to(torch.bfloat16) for n in (S, T, T))
+    qf, kf, vf = (np.ascontiguousarray(t.float().numpy()) for t in (q, k, v))
+    out = np.empty_like(qf)
+    lib.h_flash_split(_p(qf), _p(kf), _p(vf), _p(out), S, T, hd,
+                      int(causal), window or 0, bq, bk)
+    want = attention_ref(*(t[None, None] for t in (q, k, v)), causal=causal,
+                         window=window)[0, 0].float()
+    got = torch.from_numpy(out).to(torch.bfloat16).float()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got, want, rtol=2.0 ** -6, atol=1e-5)

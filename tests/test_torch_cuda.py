@@ -6,7 +6,9 @@ machine with one, run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 at rtol=1e-5 (the bound the reference sets between its two backends).
 The language-model kernels agree with their plain versions at the JAX
 kernel tests' tolerances: attention 2e-5 in float32 and 2e-2 in
-bfloat16, the intra-chunk SSD 2e-5.
+bfloat16, the intra-chunk SSD 2e-5.  The bf16 attention route on the
+tensor cores is also held, element by element, to two bf16 steps of
+the plain version (rtol 2^-6, atol 1e-5), as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
@@ -133,6 +135,37 @@ def test_flash_kernel_matches_plain(gpu, S, T, H, KV, hd, dtype, causal,
     assert got.dtype == dtype
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window", [
+    (1, 1000, 1000, 8, 8, 80, True, None),      # ragged last q- and k-tile
+    (1, 512, 512, 32, 8, 80, True, None),       # GQA 32/8
+    (1, 1500, 1500, 4, 4, 80, True, 512),       # window band
+    (2, 300, 500, 4, 2, 80, False, None),       # no mask, T != S
+    (1, 384, 384, 4, 4, 64, True, None),        # one 128-byte box of d
+    (1, 257, 257, 4, 2, 128, True, 100),
+    (1, 200, 200, 4, 4, 24, False, None),       # hd not a multiple of 16
+    (1, 200, 200, 4, 4, 36, True, None),        # hd % 8 != 0: FMA kernel
+])
+def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
+                                                causal, window):
+    """The bf16 route (tensor cores where hd % 8 == 0) against the plain
+    version on the card, TF32 off: 2e-2, and every element within two
+    bf16 steps of itself."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _expand_kv, attention, hopper_shared_memory)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(gpu, B, S, T, H, KV, hd, torch.bfloat16, seed=hd)
+    before = attention.launches
+    got = attention(q, k, v, causal=causal, window=window).float()
+    assert attention.launches == before + 1
+    want = attention_ref(q.transpose(1, 2), _expand_kv(k, H),
+                         _expand_kv(v, H), causal=causal,
+                         window=window).transpose(1, 2).float()
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got, want, rtol=2.0 ** -6, atol=1e-5)
+    assert (hopper_shared_memory(hd) > 0) == (hd % 8 == 0)
 
 
 def test_flash_kernel_refuses_head_dim_over_128(gpu):
