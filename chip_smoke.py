@@ -10,11 +10,13 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
 1. device: the card's name and power limit, then the build of all four
    kernel libraries, one nvcc each, in parallel; a [build] line per
    redesigned kernel (the sweep kernel, the tensor-core flash kernel at
-   hd 80) with registers, shared memory and spills from ptxas, and
-   whether the flash library's SASS holds HGMMA (cuobjdump);
+   hd 80, the SSD kernel at P = N = 64) with registers, shared memory and
+   spills from ptxas, and whether the flash library's SASS holds HGMMA
+   (cuobjdump);
 2. the alu_dispatch kernel against its plain version on (1048576, 16)
    seeded int32 planes, bit for bit, timed there and at the main path's
-   shape (one step of 16 PEs);
+   shape (one step of 16 PEs): the host's time per call, and the device
+   time per launch with the launches queued behind a sleep;
 3. the cgra_sweep kernel against its plain version on the card: 5
    MiBench kernels x 5 topologies x their 5 images, and Im2col-OP x 5
    topologies; integer state bit for bit, energy at rtol=1e-5;
@@ -33,7 +35,9 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    tensor-core kernel) and the f32 route (the FMA kernel) at the main
    shape;
 6. the intra-chunk SSD kernel against its plain version at
-   (G=32, L=64, H=80, P=64, N=64) f32, rtol = atol = 2e-5, timed;
+   (G, L=64, H=80, P=64, N=64) f32 for G = 32, 14 and 5 (a 2048-token
+   prompt, the serving run's mean, its smallest), rtol = atol = 2e-5,
+   each timed (device time) beside its bound, with the route it took;
 7. the serving main path: zamba2-2.7b at full width (54 layers,
    d_model 2560, seeded weights on the card), a Server with 4 slots and
    context 4096 answering 8 requests of seeded prompt lengths in
@@ -109,6 +113,41 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time of one ``fn()`` in ms: the launches queue behind a
+    sleep on the stream, so the host runs ahead and its time per call
+    does not show."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_s = (time.perf_counter() - t) / 3
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2e9 * (1.5 * host_s * reps + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """The host's time per ``fn()`` in ms, the device left to finish."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
     """(least ms the card could take, what sets it)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
@@ -133,15 +172,20 @@ def ptxas_report(log: str, kernel: str) -> str:
 
 
 def build_report(_build) -> None:
-    """Phase 1's [build] lines for the two redesigned kernels."""
+    """Phase 1's [build] lines for the three redesigned kernels."""
     import shutil
     from repro_torch.kernels.flash_attention.ops import hopper_shared_memory
+    from repro_torch.kernels.mamba2_scan.ops import shared_memory
     sweep = ptxas_report(_build.build_log("cgra_sweep"), "sweep_kernelILi16")
     flash = ptxas_report(_build.build_log("flash_attention"),
                          "flash_fwd_hopperILi80")
+    ssd = ptxas_report(_build.build_log("ssd_intra_chunk"),
+                       "ssd_kernelILi2ELb1ELb1E")
     print(f"[build] cgra_sweep sweep_kernel<16>: {sweep}; no shared memory")
     print(f"[build] flash_attention flash_fwd_hopper<80>: {flash}; dynamic "
           f"shared memory {hopper_shared_memory(80)} bytes a block")
+    print(f"[build] ssd_intra_chunk ssd_kernel<2, TMA, tensor cores>: {ssd};"
+          f" dynamic shared memory {shared_memory(64, 64)} bytes a block")
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
                                             / "cuobjdump")
     lib = _build.library("flash_attention")._name
@@ -249,44 +293,55 @@ def ssd_phase(dev) -> dict:
     """Phase 6: the intra-chunk SSD kernel against its plain version."""
     import torch
     from torch.nn.functional import softplus
-    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.mamba2_scan.ops import route, ssd_intra_chunk
     from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
 
-    G, L, H, P, N = 32, 64, 80, 64, 64
+    L, H, P, N = 64, 80, 64, 64
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
-    x = randn(G, L, H, P)
-    dt = softplus(randn(G, L, H))
-    cum = torch.cumsum(-softplus(randn(G, L, H)), dim=1)
-    Bm, Cm = randn(G, L, N), randn(G, L, N)
-    got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
-    want = intra_chunk_ref(x, dt, cum, Bm, Cm)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
-          f"ssd_intra_chunk: max abs err {err:.3g} over 2e-5")
-    ms = cuda_ms(lambda: ssd_intra_chunk(x, dt, cum, Bm, Cm), reps=20)
-    plain_ms = cuda_ms(lambda: intra_chunk_ref(x, dt, cum, Bm, Cm), reps=5)
-    tri = L * (L + 1) // 2                  # pairs j <= i of a chunk
-    n_bytes = 4 * (2 * G * L * H * P + 2 * G * L * H + 2 * G * L * N)
-    # C.B^T over the triangle once a chunk; per head and pair: the
-    # difference, exp and two multiplies of the score; the product with x
-    n_ops = 2 * G * tri * N + 4 * G * H * tri + 2 * G * H * tri * P
-    b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
-    print(f"[ssd] (G={G}, L={L}, H={H}, P={P}, N={N}) f32: max abs err "
-          f"{err:.3g} <= 2e-5; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.3f} GFLOP)")
+    by_g = []
+    for G in (32, 14, 5):
+        x = randn(G, L, H, P)
+        dt = softplus(randn(G, L, H))
+        cum = torch.cumsum(-softplus(randn(G, L, H)), dim=1)
+        Bm, Cm = randn(G, L, N), randn(G, L, N)
+        got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+        want = intra_chunk_ref(x, dt, cum, Bm, Cm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-5)),
+              f"ssd_intra_chunk G={G}: max abs err {err:.3g} over 2e-5")
+        ms = device_ms(lambda: ssd_intra_chunk(x, dt, cum, Bm, Cm))
+        plain_ms = cuda_ms(lambda: intra_chunk_ref(x, dt, cum, Bm, Cm),
+                           reps=5)
+        tri = L * (L + 1) // 2              # pairs j <= i of a chunk
+        n_bytes = 4 * (2 * G * L * H * P + 2 * G * L * H + 2 * G * L * N)
+        # C.B^T over the triangle once a chunk; per head and pair: the
+        # difference, exp and two multiplies of the score; the product
+        n_ops = 2 * G * tri * N + 4 * G * H * tri + 2 * G * H * tri * P
+        b_ms, b_by = bound(n_bytes, n_ops, F32_OPS_PER_S)
+        print(f"[ssd] (G={G}, L={L}, H={H}, P={P}, N={N}) f32, route "
+              f"{route(P, N)}: max abs err {err:.3g}, within rtol = atol = "
+              f"2e-5; kernel "
+              f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.3f} GFLOP), {ms / b_ms:.2f}x the bound")
+        by_g.append({"G": G, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err})
+    main = by_g[0]
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/mamba2_scan/csrc/"
                       "ssd_intra_chunk.cu",
             "replaces": "src/repro/kernels/mamba2_scan/kernel.py:56",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": [G, L, H, P, N]}
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shape": [32, L, H, P, N],
+            "load_route": route(P, N), "by_chunks": by_g}
 
 
 def serve_phase(dev) -> dict:
@@ -501,10 +556,14 @@ def main() -> int:
     check(torch.equal(alu_dispatch(o1, a1, b1), alu_ref(o1, a1, b1)),
           "alu_dispatch differs from alu_ref at (1, 16)")
     alu_step_ms = cuda_ms(lambda: alu_dispatch(o1, a1, b1), reps=200)
+    alu_host_ms = host_ms(lambda: alu_dispatch(o1, a1, b1))
+    alu_dev_ms = device_ms(lambda: alu_dispatch(o1, a1, b1), reps=200)
     alu_step_bound = max(4 * 4 * 16 / HBM_BYTES_PER_S,
                          ALU_I32_OPS_PER_ELEMENT * 16 / I32_OPS_PER_S) * 1e3
-    print(f"[alu_dispatch] (1, 16), the main path's shape: kernel "
-          f"{alu_step_ms:.5f} ms, bound {alu_step_bound:.3g} ms (bytes)")
+    print(f"[alu_dispatch] (1, 16), the main path's shape: {alu_step_ms:.5f}"
+          f" ms a call back to back (events), host {alu_host_ms:.5f} ms a "
+          f"call, device {alu_dev_ms:.5f} ms a launch (queued behind a "
+          f"sleep), bound {alu_step_bound:.3g} ms (bytes)")
 
     # ---- 3. cgra_sweep vs sweep_ref on the card --------------------------
     def engine_inputs(batch, prof, hws, images):
@@ -694,6 +753,8 @@ def main() -> int:
          "ms": alu_ms, "plain_ms": alu_plain_ms, "bound_ms": alu_bound,
          "bound_by": "bytes", "library_ms": None, "shape": list(shape),
          "main_path_shape": [1, 16], "main_path_ms": alu_step_ms,
+         "main_path_host_ms": alu_host_ms,
+         "main_path_device_ms": alu_dev_ms,
          "main_path_bound_ms": alu_step_bound},
         flash_entry, ssd_entry,
     ]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the design alternatives of the two redesigned Hopper kernels
+"""Time the design alternatives of the redesigned Hopper kernels
 against the kernels as committed, on one GPU.
 
-    PYTHONPATH=src python3 scripts/hopper_kernel_variants.py
+    PYTHONPATH=src python3 scripts/hopper_kernel_variants.py [--only ssd]
 
 Each variant is a copy of ``src/repro_torch/kernels`` with a few source
 lines replaced, built with the library's own nvcc flags into
@@ -17,29 +17,45 @@ loaded in place of the committed library for its measurements:
 - the sweep kernel (the 40,960-point conv campaign of chip_smoke.py,
   three buckets, ``max_steps=13000``): lanes per block and chunk sizes
   of ``dse.sweep``, and each lane's memory image copied into shared
-  memory for the chunk (``blk_b`` <= 14 at 16 KB an image).
+  memory for the chunk (``blk_b`` <= 14 at 16 KB an image);
+- the intra-chunk SSD kernel (the serving path's shapes, L=64, H=80,
+  P=64, N=64, at G=32 and G=5 chunks): both products as f32 FMAs on the
+  CUDA cores (the kernel's cp.async route) or in 3xTF32 on the tensor
+  cores, instead of f64 on the tensor cores; a ring of three x tiles
+  instead of two; grids of at least 1 or 4 (chunk, head) items a block
+  instead of at least 2; and three diagnostics
+  that leave out the products, C.B^T, or everything but the loads and
+  stores (their results are wrong by design; they show where the time
+  goes).  Times are device times: the launches queue behind a sleep on
+  the stream, so the host's time per call does not show.
 
 Every variant's results are compared with the committed kernel's:
 attention against the plain version (max error, elements off by more
-than two bf16 steps), the sweep's integers bit for bit and its energy.
+than two bf16 steps), the sweep's integers bit for bit and its energy,
+the SSD against the plain version on the host (max error, elements off
+by more than 2e-5) and against the float64 rounding bound of
+scripts/stress_lm_kernels.py (worst error over the bound).
 Prints one line a measurement and the ptxas summary (registers, spills,
 wgmma serialization notes) of each variant.  Measurements alternate
 committed, variants, committed.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import importlib.util
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from chip_smoke import device_ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
@@ -47,6 +63,7 @@ OUT = ROOT / "build" / "variants"
 FH = "flash_attention/csrc/flash_hopper.cuh"
 FT = "flash_attention/csrc/flash_tile.cuh"
 SW = "cgra_sweep/csrc/cgra_sweep.cu"
+SSD_CU = "mamba2_scan/csrc/ssd_intra_chunk.cu"
 
 FLASH = {
     "three consumer warpgroups": [
@@ -83,6 +100,39 @@ SWEEP = {
         (SW, _LAUNCH.format(p=16), _LAUNCH_SMEM.format(p=16)),
         (SW, _LAUNCH.format(p=0), _LAUNCH_SMEM.format(p=0))],
 }
+
+
+_SSD_NO_PRODUCT = (SSD_CU, "      for (int ks = 0; ks < nk; ++ks) {",
+                   "      for (int ks = 0; ks < 0 * nk; ++ks) {")
+_SSD_NO_CB = (SSD_CU, "      chunk_cb();\n",
+              "      if (a.G < 0) chunk_cb();\n")
+_SSD_NO_SCORES = (SSD_CU,
+                  "        at[u] = i < L && j < L ? j * SC_LD + i : -1;",
+                  "        at[u] = -1;")
+SSD = {
+    "f32 FMAs on the CUDA cores": [
+        (SSD_CU, "    return dispatch<true, true>(a, st);",
+         "    return dispatch<true, false>(a, st);")],
+    "3xTF32 on the tensor cores": [
+        (SSD_CU, "constexpr bool kF64 = true;",
+         "constexpr bool kF64 = false;")],
+    "ring depth 3": [
+        (SSD_CU, "constexpr int STAGES = 2; ", "constexpr int STAGES = 3; ")],
+    "at least 1 item a block": [
+        (SSD_CU, "constexpr int MIN_ITEMS = 2; ",
+         "constexpr int MIN_ITEMS = 1; ")],
+    "at least 4 items a block": [
+        (SSD_CU, "constexpr int MIN_ITEMS = 2; ",
+         "constexpr int MIN_ITEMS = 4; ")],
+    # diagnostics, wrong results by design: where the time goes
+    "diagnostic: no products": [_SSD_NO_PRODUCT],
+    "diagnostic: no C.B^T": [_SSD_NO_CB],
+    "diagnostic: loads and stores only": [_SSD_NO_PRODUCT, _SSD_NO_CB,
+                                          _SSD_NO_SCORES],
+}
+KERNEL_NAME = {"flash_attention": "flash_fwd_hopperILi80",
+               "cgra_sweep": "sweep_kernelILi16",
+               "ssd_intra_chunk": "ssd_kernelILi2ELb1E"}
 
 
 def start_build(name: str, lib: str, edits):
@@ -129,6 +179,37 @@ def cuda_ms(fn, reps: int = 1) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def ssd(libs, committed) -> None:
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
+    spec = importlib.util.spec_from_file_location(
+        "stress_lm_kernels", ROOT / "scripts" / "stress_lm_kernels.py")
+    stress = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stress)
+    dev = torch.device("cuda")
+    cases = {}
+    for G in (32, 5):
+        gen = torch.Generator(device=dev).manual_seed(G)
+        args = stress.ssd_inputs(gen, dev, G, 64, 80, 64, 64)
+        want, err = stress.ssd_error_bound(*args)
+        cases[G] = (args, intra_chunk_ref(*(t.cpu() for t in args)), want,
+                    err)
+    for name in ["committed", *libs, "committed"]:
+        _build._loaded["ssd_intra_chunk"] = libs.get(name, committed)
+        line = []
+        for G, (args, host, want, err) in cases.items():
+            y = ssd_intra_chunk(*args)
+            off = int((~torch.isclose(y.cpu(), host, rtol=2e-5,
+                                      atol=2e-5)).sum())
+            e = float((y.cpu() - host).abs().max())
+            ms = device_ms(lambda: ssd_intra_chunk(*args))
+            line.append(f"G={G} {ms:.4f} ms, max abs err {e:.3g} "
+                        f"({off} elements off by more than 2e-5), worst "
+                        f"error {stress.ratio(y, want, err):.3g} of the "
+                        f"bound")
+        print(f"[ssd] {name}: " + "; ".join(line))
 
 
 def flash(libs, committed) -> None:
@@ -204,6 +285,9 @@ def sweep(libs, committed) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", choices=["flash", "sweep", "ssd"])
+    only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("hopper_kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -211,28 +295,29 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     _build.build_all()
-    committed_flash = _build.library("flash_attention")
-    committed_sweep = _build.library("cgra_sweep")
-    flash_log = _build.build_log("flash_attention")
-    print(f"[build] committed flash: "
-          f"{ptxas_summary(flash_log, 'flash_fwd_hopperILi80')}")
-    started = {("flash_attention", n): start_build(n, "flash_attention", e)
-               for n, e in FLASH.items()}
-    started.update({("cgra_sweep", n): start_build(n, "cgra_sweep", e)
-                    for n, e in SWEEP.items()})
-    libs = {"flash_attention": {}, "cgra_sweep": {}}
+    groups = {"flash": ("flash_attention", FLASH, flash),
+              "sweep": ("cgra_sweep", SWEEP, sweep),
+              "ssd": ("ssd_intra_chunk", SSD, ssd)}
+    if only:
+        groups = {only: groups[only]}
+    started = {}
+    for lib, variants, _ in groups.values():
+        print(f"[build] committed {lib}: "
+              f"{ptxas_summary(_build.build_log(lib), KERNEL_NAME[lib])}")
+        started.update({(lib, n): start_build(n, lib, e)
+                        for n, e in variants.items()})
+    libs = {lib: {} for lib, _, _ in groups.values()}
     for (lib, name), (so, proc) in started.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             print(f"[build] {name}: nvcc failed\n{log[-2000:]}")
             return 1
-        kernel = "flash_fwd_hopperILi80" if lib == "flash_attention" \
-            else "sweep_kernelILi16"
-        print(f"[build] {name}: {ptxas_summary(log, kernel)}")
+        print(f"[build] {name}: {ptxas_summary(log, KERNEL_NAME[lib])}")
         libs[lib][name] = ctypes.CDLL(str(so))
-    flash(libs["flash_attention"], committed_flash)
-    sweep(libs["cgra_sweep"], committed_sweep)
+    for lib, _, run in groups.values():
+        run(libs[lib], _build.library(lib))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

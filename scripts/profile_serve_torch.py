@@ -33,7 +33,7 @@ def device_us(evt) -> float:
 
 
 KINDS = (("flash_attention", ("flash_fwd",)),
-         ("ssd_intra_chunk", ("ssd_intra_chunk_kernel",)),
+         ("ssd_intra_chunk", ("ssd_kernel",)),
          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "gemv")),
          # PyTorch's float->bfloat16 conversion kernel: the per-call
          # casts of the f32 weights (and of any f32 activation)

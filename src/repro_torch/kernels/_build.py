@@ -39,16 +39,17 @@ SOURCES: Dict[str, Path] = {
 # report is kept beside the library (``build_log``)
 _PTXAS_V = ["-Xptxas", "-v"]
 # library name -> its flags beyond NVCC_FLAGS (the sweep kernel also
-# includes the ALU header of cgra_step/csrc; the flash library links the
-# driver API for cuTensorMapEncodeTiled, against the toolkit's stub)
+# includes the ALU header of cgra_step/csrc; the flash and SSD libraries
+# link libcuda, against the toolkit's stub, for cuTensorMapEncodeTiled)
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "cgra_alu": _NO_FMAD,
     "cgra_sweep": _NO_FMAD + _PTXAS_V
     + ["-I", str(_PKG / "cgra_step" / "csrc")],
     "flash_attention": _PTXAS_V + ["-lcuda"],
-    "ssd_intra_chunk": [],
+    "ssd_intra_chunk": _PTXAS_V + ["-lcuda"],
 }
 _loaded: Dict[str, ctypes.CDLL] = {}
+_typed: Dict[tuple, tuple] = {}     # (library, entry) -> (CDLL, function)
 
 
 def nvcc() -> str:
@@ -127,6 +128,19 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_finish(name, *_start(name))))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, entry: str, argtypes):
+    """The C function ``entry`` of library ``name``, returning int, its
+    argument types set once per loaded library (not on every call)."""
+    lib = library(name)
+    got = _typed.get((name, entry))
+    if got is None or got[0] is not lib:
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        got = _typed[(name, entry)] = (lib, fn)
+    return got[1]
 
 
 def check(status: int, what: str) -> None:

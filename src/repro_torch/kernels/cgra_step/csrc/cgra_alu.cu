@@ -29,12 +29,14 @@ __global__ void alu_dispatch_kernel(const int32_t* __restrict__ ops,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches on `stream`; returns cudaGetLastError() (0 on success).  Up
+// to 256 elements (the simulator's step: one per PE) take one block of
+// whole warps; more take a grid-stride grid of 256-thread blocks.
 extern "C" int cgra_alu_dispatch(const int32_t* ops, const int32_t* a,
                                  const int32_t* b, int32_t* out, int64_t n,
                                  void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
+  const int threads = n <= 256 ? static_cast<int>((n + 31) / 32 * 32) : 256;
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 65536) blocks = 65536;
   alu_dispatch_kernel<<<static_cast<unsigned>(blocks), threads, 0,

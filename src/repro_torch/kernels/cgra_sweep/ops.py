@@ -75,9 +75,8 @@ def _check(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
 def kernel_attributes() -> dict:
     """The compiled sweep kernel's ``max_threads`` per block and
     ``num_regs`` per thread on the current device."""
-    fn = _build.library("cgra_sweep").cgra_sweep_attributes
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int32)] * 2
-    fn.restype = ctypes.c_int
+    fn = _build.function("cgra_sweep", "cgra_sweep_attributes",
+                         [ctypes.POINTER(ctypes.c_int32)] * 2)
     max_threads, num_regs = ctypes.c_int32(), ctypes.c_int32()
     _build.check(fn(ctypes.byref(max_threads), ctypes.byref(num_regs)),
                  "cgra_sweep_attributes")
@@ -87,9 +86,7 @@ def kernel_attributes() -> dict:
 def _launch_chunks(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
                    st: LaneState, *, rows: int, cols: int, max_steps: int,
                    chunk_steps: Optional[int], blk_b: int) -> None:
-    fn = _build.library("cgra_sweep").cgra_sweep_chunk
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _build.function("cgra_sweep", "cgra_sweep_chunk", _ARGTYPES)
     B, M = st.mem.shape
     hw_i = torch.stack([getattr(hw, f).to(torch.int32)
                         for f in HW_INT_FIELDS], dim=1).contiguous()

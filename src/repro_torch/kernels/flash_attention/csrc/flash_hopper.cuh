@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../common/csrc/hopper_async.cuh"
 #include "flash_tile.cuh"
 #include "wgmma_ops.cuh"
 
@@ -76,70 +77,12 @@ __host__ __device__ constexpr int smem_bytes(int hdp) {
          8 * N_BARRIERS;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of the given parity has completed.  The spin
-// loop lives inside one asm statement, so the compiler sees no divergent
-// branch between asynchronous products (where it would serialize them).
-// A completion that never comes (a copy the hardware refused) would hang
-// the card; after about ten seconds the wait traps instead, and the
-// launch fails.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done, late;\n"
-      ".reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@done bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 late, t1, 20000000000;\n"
-      "@late trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Arrive on `bar` from one thread of the warp, `lane` == 0, without a
-// branch (see mbar_wait).
-__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(lane)
-      : "memory");
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
+using hopper::mbar_arrive_lane0;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load_4d;
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
 // address, leading and stride byte offsets (16-byte units), layout type 1.
@@ -254,7 +197,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(v_full(st), 1);
       mbar_init(empty(st), CONSUMERS * 4);   // one arrival per warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
@@ -267,7 +210,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(q_full, CONSUMERS * NDB * TILE_BYTES);
       for (int w = 0; w < CONSUMERS; ++w)
         for (int db = 0; db < NDB; ++db)
-          tma_load(sq + (w * NDB + db) * TILE_BYTES, &tq, q_full, db * BOX,
+          tma_load_4d(sq + (w * NDB + db) * TILE_BYTES, &tq, q_full, db * BOX,
                    h, q_lo + 64 * w, b);
       int t_lo, n_live;
       live_range(q_lo, q_hi, n_kt, Tk, causal, window, t_lo, n_live);
@@ -277,11 +220,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (j >= STAGES) mbar_wait(empty(st), ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(k_full(st), NDB * TILE_BYTES);
         for (int db = 0; db < NDB; ++db)
-          tma_load(sk + (st * NDB + db) * TILE_BYTES, &tk, k_full(st),
+          tma_load_4d(sk + (st * NDB + db) * TILE_BYTES, &tk, k_full(st),
                    db * BOX, kvh, k_lo, b);
         mbar_expect_tx(v_full(st), NDB * TILE_BYTES);
         for (int db = 0; db < NDB; ++db)
-          tma_load(sv + (st * NDB + db) * TILE_BYTES, &tv, v_full(st),
+          tma_load_4d(sv + (st * NDB + db) * TILE_BYTES, &tv, v_full(st),
                    db * BOX, kvh, k_lo, b);
       }
     }

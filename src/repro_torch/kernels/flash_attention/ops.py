@@ -55,9 +55,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"attention: the kernel takes head_dim up to "
                          f"{MAX_HEAD_DIM}, got {hd}")
-    fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_attention", "flash_attention_fwd",
+                         _ARGTYPES)
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -72,10 +71,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
 def hopper_shared_memory(hd: int) -> int:
     """Bytes of dynamic shared memory the tensor-core kernel takes a block
     at this head_dim (0 where bf16 calls take the FMA kernel)."""
-    fn = _build.library("flash_attention").flash_attention_hopper_smem
-    fn.argtypes = [_I]
-    fn.restype = ctypes.c_int
-    return fn(hd)
+    return _build.function("flash_attention", "flash_attention_hopper_smem",
+                           [_I])(hd)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

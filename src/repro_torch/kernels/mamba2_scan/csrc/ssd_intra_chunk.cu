@@ -10,195 +10,662 @@
 // What bounds it on an H100: bytes.  At the main path's prefill of a
 // 2048-token prompt (G=32, L=64, H=80, P=64, N=64) it reads x and writes
 // y, 84 MB, 0.025 ms at 3.35 TB/s; the products over the causal
-// triangle are 0.7 GFLOP, 0.011 ms at the 67 TFLOP/s of f32 FMAs.
+// triangle are 0.7 GFLOP.
 //
-// What the design does about it: the TPU kernel takes one grid step per
-// (chunk, head) and recomputes C.B^T for every head through a broadcast
-// of B and C.  Here one block of 256 threads takes a chunk and a group
-// of HPB heads: it computes C.B^T (L x L) once into shared memory, then
-// for each head builds the decay-masked scores (`ssd::score`) beside it
-// and multiplies them into that head's x tile, 4x4 register tiles a
-// thread, writing y once.  Every input byte is read once per block and
-// the (L, L) intermediates never leave shared memory.  All arithmetic is
-// f32 FMA: the JAX tolerance is 1e-5, so no TF32 or bf16.  For L < 64 the
-// rows and columns past L are never read, so every shared word a thread
-// reads was written in the same launch.
+// Design.  The TPU kernel takes one grid step per (chunk, head) and
+// recomputes C.B^T for every head.  Here a persistent grid of 256-thread
+// blocks (as many as fit on the card at once, two an SM, but no more
+// than one per MIN_ITEMS items) splits the G*H (chunk, head) items into
+// contiguous ranges (`ssd::block_items`), so a block computes C.B^T once
+// per chunk it meets, over the tiles on and below the diagonal only
+// (`ssd::cb_tile`), into shared memory, and the grid fills the SMs
+// whether G is 5 or 32.  (At G = 5, 400 items, blocks of at least two
+// items measured faster than one block per item: fewer blocks compute
+// C.B^T; scripts/hopper_kernel_variants.py.)  Each item's (L, P) tile of x
+// comes through a ring of STAGES slots in shared memory: the next item's
+// tile is in flight while one is multiplied.  Two load routes fill the
+// same 128-byte-swizzled layout (`ssd::swz`, 32-column boxes, zeros past
+// L and P):
+// - TMA (P and N multiples of 4, tensors on 16-byte boundaries: the
+//   serving path's shapes): x viewed as (G*L, H, P) and B, C as
+//   (G*L, N), one cp.async.bulk.tensor per box completing on an
+//   mbarrier; C and B of the block's next chunk load while it works;
+// - cp.async of 4-byte words (every other shape), C and B by plain loads.
+// Per item the block makes the scores its products read once, the same
+// count for every thread (`ssd::score_pair`; `ssd::score`, masked only
+// in the diagonal blocks, `ssd::diag_block`), into shared memory; then
+// warp w multiplies the strips w % 2 and 3 - w % 2 (10 k-steps each at
+// L = 64, `ssd::strip_ksteps`) into a quarter of y's columns.
+//
+// Products.  The TMA route runs both products (C.B^T and scores.x) on the
+// tensor cores as mma.sync m16n8k8 in f64: the f32 operands convert
+// exactly, the sums are f64, one rounding to f32 at the end.  The f32
+// FMA products (the cp.async route) are shared-memory-bound at this
+// kernel's tile sizes; 3xTF32 (`ssd::split_tf32`, hi*hi + hi*lo + lo*hi
+// in f32 accumulators) is faster than the FMAs but leaves about 12 units
+// of float32 rounding in each product and fails the 2e-5 check against
+// the plain version (scripts/hopper_kernel_variants.py measures both,
+// `kF64` false selects 3xTF32).  Both routes store y from registers, in
+// 16-byte stores on the FMA route.
+//
+// Per-launch host work: the tensor maps (three cuTensorMapEncodeTiled);
+// the shared-memory attribute and the occupancy query run once per
+// kernel instance (and device).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+#include <type_traits>
+
+#include "../../common/csrc/hopper_async.cuh"
 #include "ssd_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;   // 16 x 16: rows tr + 16a, columns tc + 16c
-constexpr int MAX_L = 64;
-constexpr int LD = MAX_L + 1;  // padded rows of the (L, L) tiles
-constexpr int HPB = 4;         // heads per block, sharing one C.B^T
-constexpr int MAX_P = 128;
-constexpr int MAX_N = 128;
+using hopper::smem_u32;
+using ssd::MAX_L;
+using ssd::BOX;
 
-// Shared memory, in floats: cs[L][N], bt[N][LD] (B transposed),
-// cb[MAX_L][LD], sc[MAX_L][LD], xs[L][P], cum_s[MAX_L], dt_s[MAX_L].
-template <int NC>  // NC = ceil(P / 16) columns of y a thread
-__global__ void __launch_bounds__(THREADS)
-    ssd_intra_chunk_kernel(const float* __restrict__ x,
-                           const float* __restrict__ dt,
-                           const float* __restrict__ cum,
-                           const float* __restrict__ Bm,
-                           const float* __restrict__ Cm,
-                           float* __restrict__ y, int L, int H, int P,
-                           int N) {
-  extern __shared__ float smem[];
-  float* cs = smem;
-  float* bt = cs + L * N;
-  float* cb = bt + N * LD;
-  float* sc = cb + MAX_L * LD;
-  float* xs = sc + MAX_L * LD;
-  float* cum_s = xs + L * P;
-  float* dt_s = cum_s + MAX_L;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;         // x ring depth
+constexpr int MIN_ITEMS = 2;      // fewest (chunk, head) items a block
+constexpr int BOX_WORDS = MAX_L * BOX;   // one 8 KB box
+constexpr int CB_LD = MAX_L + 4;  // rows of C.B^T and of the scores,
+constexpr int SC_LD = MAX_L + 4;  // both transposed: [j][i]
+constexpr int MAX_P = 128, MAX_N = 128;
+constexpr int MAX_DEVICES = 64;
 
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int64_t g = blockIdx.x;
-  const int h0 = blockIdx.y * HPB;
-  const int h1 = min(h0 + HPB, H);
+// Shared memory in floats after a 1024-byte-aligned base: the x ring
+// [STAGES][NBX boxes], C and B [nbn boxes] each, (C.B^T)^T
+// [MAX_L][CB_LD], cum and dt [STAGES][MAX_L] each, the
+// scores (transposed) [MAX_L][SC_LD], then STAGES + 1 mbarriers.
+__host__ __device__ constexpr int smem_bytes(int nbx, int nbn) {
+  return 1024 +
+         4 * ((STAGES * nbx + 2 * nbn) * BOX_WORDS + MAX_L * CB_LD +
+              2 * STAGES * MAX_L + MAX_L * SC_LD) +
+         8 * (STAGES + 1);
+}
 
-  const float* Cg = Cm + g * L * N;
-  const float* Bg = Bm + g * L * N;
-  for (int idx = tid; idx < L * N; idx += THREADS) {
-    cs[idx] = Cg[idx];
-    bt[(idx % N) * LD + idx / N] = Bg[idx];
+// The tensor-core products: f64 operands and accumulators (the f32
+// inputs convert exactly; one rounding to f32 at the end), or, as
+// scripts/hopper_kernel_variants.py measures, 3xTF32 in f32 accumulators.
+constexpr bool kF64 = true;
+using Acc = std::conditional_t<kF64, double, float>;
+
+// d += a * b over one m16n8k8 tile, f64 operands and accumulators.
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// d += a * b over one m16n8k8 tile, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// The A operand of one k-step (m16n8k8 layout: a0 row g, a1 row g + 8,
+// a2 and a3 the same rows at k + 4), in f64 or in two TF32 terms.  The
+// kernel's k order: lane t of a quad holds k index t (a0, a1, b0) at
+// column k0 + 2t and k index t + 4 (a2, a3, b1) at column k0 + 2t + 1, so
+// that C and B fragments are one 8-byte load each and the x fragments
+// fall in eight distinct 16-byte chunks of the swizzle.
+struct FragA {
+  double v[4];
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (kF64) {
+        v[k] = a[k];
+      } else {
+        float h, l;
+        ssd::split_tf32(a[k], h, l);
+        hi[k] = __float_as_uint(h);
+        lo[k] = __float_as_uint(l);
+      }
+    }
   }
-  __syncthreads();
+};
 
-  // C.B^T once for the block's heads
-  {
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = tr + 16 * a;
-        cv[a] = i < L ? cs[i * N + n] : 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tc + 16 * c;
-        bv[c] = j < L ? bt[n * LD + j] : 0.0f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(cv[a], bv[c], acc[a][c]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        cb[(tr + 16 * a) * LD + tc + 16 * c] = acc[a][c];
-  }
-
-  for (int h = h0; h < h1; ++h) {
-    __syncthreads();  // cb is complete; the previous head's tiles are read
-    const int64_t row0 = g * L;
-    if (tid < L) {
-      cum_s[tid] = cum[(row0 + tid) * H + h];
-      dt_s[tid] = dt[(row0 + tid) * H + h];
-    }
-    for (int idx = tid; idx < L * P; idx += THREADS) {
-      const int j = idx / P, p = idx % P;
-      xs[idx] = x[((row0 + j) * H + h) * P + p];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = tr + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tc + 16 * c;
-        if (i < L && j < L)
-          sc[i * LD + j] = ssd::score(cb[i * LD + j], cum_s[i], cum_s[j],
-                                      dt_s[j], i, j);
-      }
-    }
-    __syncthreads();
-
-    float acc[4][NC];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[a][c] = 0.0f;
-    for (int j = 0; j < L; ++j) {
-      float sv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = tr + 16 * a;
-        sv[a] = i < L ? sc[i * LD + j] : 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int p = tc + 16 * c;
-        const float xv = p < P ? xs[j * P + p] : 0.0f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(sv[a], xv, acc[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = tr + 16 * a;
-      if (i >= L) continue;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int p = tc + 16 * c;
-        if (p < P) y[((row0 + i) * H + h) * P + p] = acc[a][c];
-      }
-    }
+// d += a * b for the B fragment (b0, b1) of one k-step; 3xTF32 adds the
+// small terms first.
+template <class T>
+__device__ __forceinline__ void mma_step(T (&d)[4], const FragA& a, float b0,
+                                         float b1) {
+  if constexpr (std::is_same_v<T, double>) {
+    mma_f64(d, a.v, b0, b1);
+  } else {
+    float bh0, bl0, bh1, bl1;
+    ssd::split_tf32(b0, bh0, bl0);
+    ssd::split_tf32(b1, bh1, bl1);
+    mma_tf32(d, a.lo, bh0, bh1);
+    mma_tf32(d, a.hi, bl0, bl1);
+    mma_tf32(d, a.hi, bh0, bh1);
   }
 }
 
-template <int NC>
-int launch(const float* x, const float* dt, const float* cum,
-           const float* Bm, const float* Cm, float* y, int G, int L, int H,
-           int P, int N, cudaStream_t stream) {
-  const int smem = (L * N + N * LD + 2 * MAX_L * LD + L * P + 2 * MAX_L) *
-                   static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_intra_chunk_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+struct Args {
+  const float* x;
+  const float* dt;
+  const float* cum;
+  const float* Bm;
+  const float* Cm;
+  float* y;
+  int G, L, H, P, N, nbn;
+};
+
+// NBX: 32-column boxes of x (P <= 32 NBX); kTMA: the load route; kTC:
+// products on the tensor cores (else f32 FMAs).
+template <int NBX, bool kTMA, bool kTC>
+__global__ void __launch_bounds__(THREADS, 2)
+    ssd_kernel(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tc,
+               const __grid_constant__ CUtensorMap tb, const Args a) {
+  constexpr int NQ = (NBX + 1) / 2;   // 4-column groups of a lane (FMA)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem_raw +
+                                       (((raw + 1023) & ~1023u) - raw));
+  float* cs = xs + STAGES * NBX * BOX_WORDS;
+  float* bs = cs + a.nbn * BOX_WORDS;
+  float* cb = bs + a.nbn * BOX_WORDS;                 // cb[j][i]
+  float* cum_s = cb + MAX_L * CB_LD;
+  float* dt_s = cum_s + STAGES * MAX_L;
+  float* sc = dt_s + STAGES * MAX_L;                  // sc[j][i]
+  const uint32_t bars = smem_u32(sc + MAX_L * SC_LD);
+  auto x_full = [&](int s) { return bars + 8 * s; };
+  const uint32_t cb_full = bars + 8 * STAGES;
+
+  const int L = a.L, H = a.H, P = a.P, N = a.N;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  // warp w: strips w % 2 and 3 - w % 2, the quarter w / 2 of y's columns
+  const int quarter = warp >> 1;
+  int64_t lo, hi;
+  ssd::block_items(static_cast<int64_t>(a.G) * H, blockIdx.x, gridDim.x,
+                   lo, hi);
+  const int n_items = static_cast<int>(hi - lo);
+  if (n_items <= 0) return;
+  const int g_last = static_cast<int>((hi - 1) / H);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(x_full(s), 1);
+    hopper::mbar_init(cb_full, 1);
+    hopper::mbar_init_fence();
+  }
+  // C and B of chunk g into cs and bs
+  auto load_cb = [&](int g) {
+    if constexpr (kTMA) {
+      if (tid == 0) {
+        hopper::mbar_expect_tx(cb_full, 2 * a.nbn * BOX * L * 4);
+        for (int b = 0; b < a.nbn; ++b) {
+          hopper::tma_load_2d(smem_u32(cs + b * BOX_WORDS), &tc, cb_full,
+                              BOX * b, g * L);
+          hopper::tma_load_2d(smem_u32(bs + b * BOX_WORDS), &tb, cb_full,
+                              BOX * b, g * L);
+        }
+      }
+    } else {
+      const int64_t row0 = static_cast<int64_t>(g) * L;
+      for (int idx = tid; idx < L * N; idx += THREADS) {
+        const int i = idx / N, n = idx % N;
+        cs[ssd::swz(i, n)] = a.Cm[row0 * N + idx];
+        bs[ssd::swz(i, n)] = a.Bm[row0 * N + idx];
+      }
+    }
+  };
+  // on the TMA route C and B of the first chunk load while the block
+  // clears the words no copy writes: the rows past L of every box (and,
+  // on the cp.async route, the columns past P and N; on the TMA route the
+  // copies fill those with zeros themselves, and no word the TMA unit
+  // writes is also written here); for L < 64 also C.B^T (whose tiles
+  // past L are never computed), cum, dt and the scores, so that a masked
+  // score is 0 * 0 * 0, never 0 * a stale infinity
+  if constexpr (kTMA) load_cb(static_cast<int>(lo / H));
+  {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int boxes = STAGES * NBX + 2 * a.nbn;
+    const int r0 = kTMA ? L : 0, per_box = (MAX_L - r0) * BOX / 4;
+    for (int i = tid; i < boxes * per_box; i += THREADS)
+      reinterpret_cast<float4*>(xs + (i / per_box) * BOX_WORDS +
+                                r0 * BOX)[i % per_box] = zero;
+    if (L < MAX_L)
+      for (int i = tid; i < (MAX_L * CB_LD + 2 * STAGES * MAX_L +
+                             MAX_L * SC_LD) / 4;
+           i += THREADS)
+        reinterpret_cast<float4*>(cb)[i] = zero;
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if constexpr (!kTMA) {
+    load_cb(static_cast<int>(lo / H));
+    __syncthreads();
+  }
+  // the block's n-th item into its ring slot: x, cum, dt; one cp.async
+  // group a thread per call, empty past the last item
+  auto fill_slot = [&](int n) {
+    if (n < n_items) {
+      const int64_t k = lo + n;
+      const int g = static_cast<int>(k / H), h = static_cast<int>(k % H);
+      const int s = ssd::ring_stage(n, STAGES);
+      const int64_t row0 = static_cast<int64_t>(g) * L;
+      if (tid < L)
+        hopper::cp_async4(smem_u32(cum_s + s * MAX_L + tid),
+                          a.cum + (row0 + tid) * H + h);
+      else if (tid >= MAX_L && tid - MAX_L < L)
+        hopper::cp_async4(smem_u32(dt_s + s * MAX_L + tid - MAX_L),
+                          a.dt + (row0 + tid - MAX_L) * H + h);
+      float* xst = xs + s * NBX * BOX_WORDS;
+      if constexpr (kTMA) {
+        if (tid == 0) {
+          hopper::mbar_expect_tx(x_full(s), NBX * BOX * L * 4);
+          for (int b = 0; b < NBX; ++b)
+            hopper::tma_load_3d(smem_u32(xst + b * BOX_WORDS), &tx,
+                                x_full(s), BOX * b, h, g * L);
+        }
+      } else {
+        for (int idx = tid; idx < L * P; idx += THREADS) {
+          const int j = idx / P, p = idx % P;
+          hopper::cp_async4(smem_u32(xst + ssd::swz(j, p)),
+                            a.x + ((row0 + j) * H + h) * P + p);
+        }
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  // C.B^T of the loaded chunk over the tiles on and below the diagonal,
+  // into cb transposed
+  auto chunk_cb = [&]() {
+    for (int q = warp; q < ssd::CB_TILES; q += WARPS) {
+      int r, c;
+      ssd::cb_tile(q, r, c);
+      const int i0 = ssd::STRIP * r, j0 = ssd::KSTEP * c;
+      if (i0 >= L || j0 >= L) continue;
+      if constexpr (kTC) {
+        // the accumulator layout: rows g8, g8 + 8; columns 2 t4, + 1
+        Acc d[4] = {};
+        for (int k0 = 0; k0 < N; k0 += ssd::KSTEP) {
+          const int kc = k0 + 2 * t4;
+          const float2 ca = ld2(cs + ssd::swz(i0 + g8, kc));
+          const float2 cc = ld2(cs + ssd::swz(i0 + g8 + 8, kc));
+          const float2 bb = ld2(bs + ssd::swz(j0 + g8, kc));
+          FragA fa;
+          fa.set(ca.x, cc.x, ca.y, cc.y);
+          mma_step(d, fa, bb.x, bb.y);
+        }
+        float* o = cb + (j0 + 2 * t4) * CB_LD + i0 + g8;
+        o[0] = static_cast<float>(d[0]);
+        o[CB_LD] = static_cast<float>(d[1]);
+        o[8] = static_cast<float>(d[2]);
+        o[CB_LD + 8] = static_cast<float>(d[3]);
+      } else {
+        // f32 FMAs: lane (rq, cc) owns rows i0 + 4 rq .. + 3 of column
+        // j0 + cc; 16-byte reads along the state dimension, one partial
+        // sum per row and lane of the read
+        const int rq = lane / 8, cc = lane % 8;
+        float d[4][4] = {};
+#pragma unroll 4
+        for (int n = 0; n < N; n += 4) {
+          const float4 bv = ld4(bs + ssd::swz(j0 + cc, n));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 cv = ld4(cs + ssd::swz(i0 + 4 * rq + k, n));
+            d[k][0] = fmaf(cv.x, bv.x, d[k][0]);
+            d[k][1] = fmaf(cv.y, bv.y, d[k][1]);
+            d[k][2] = fmaf(cv.z, bv.z, d[k][2]);
+            d[k][3] = fmaf(cv.w, bv.w, d[k][3]);
+          }
+        }
+        float e[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          e[k] = (d[k][0] + d[k][1]) + (d[k][2] + d[k][3]);
+        *reinterpret_cast<float4*>(cb + (j0 + cc) * CB_LD + i0 + 4 * rq) =
+            make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+
+  for (int n = 0; n < STAGES; ++n) fill_slot(n);
+  uint32_t cb_phase = 0;
+  int g_cur = -1;
+  for (int n = 0; n < n_items; ++n) {
+    const int64_t k = lo + n;
+    const int g = static_cast<int>(k / H), h = static_cast<int>(k % H);
+    const int s = ssd::ring_stage(n, STAGES);
+    if (g != g_cur) {
+      if constexpr (kTMA) {
+        hopper::mbar_wait(cb_full, cb_phase);
+        cb_phase ^= 1u;
+      } else if (g_cur >= 0) {
+        load_cb(g);
+        __syncthreads();
+      }
+      chunk_cb();
+      __syncthreads();   // C.B^T complete; cs and bs free
+      if constexpr (kTMA) {
+        if (g < g_last) load_cb(g + 1);
+      }
+      g_cur = g;
+    }
+    hopper::cp_async_wait<STAGES - 1>();
+    __syncthreads();     // this item's cum, dt (and cp.async x) arrived
+    if constexpr (kTMA)
+      hopper::mbar_wait(x_full(s), ssd::ring_phase(n, STAGES));
+    const float* xst = xs + s * NBX * BOX_WORDS;
+    const float* cums = cum_s + s * MAX_L;
+    const float* dts = dt_s + s * MAX_L;
+    const int64_t row0 = static_cast<int64_t>(g) * L;
+
+    // the scores the products read (`ssd::score_pair`), transposed, the
+    // same count for every thread; the mask only on the diagonal blocks
+    {   // all operands read before any score is written
+      constexpr int U = ssd::SCORE_PAIRS / THREADS;
+      float v[U];
+      int at[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int i, j;
+        ssd::score_pair(tid + THREADS * u, i, j);
+        at[u] = i < L && j < L ? j * SC_LD + i : -1;
+        const float c = cb[j * CB_LD + i], ci = cums[i], cj = cums[j],
+                    d = dts[j];
+        v[u] = ssd::diag_block(i, j) ? ssd::score(c, ci, cj, d, i, j)
+                                     : ssd::score_below(c, ci, cj, d);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (at[u] >= 0) sc[at[u]] = v[u];
+    }
+    __syncthreads();
+
+    if constexpr (kTC) {
+      // the warp's NBX n-tiles of 8 columns in each of its two strips
+      Acc acc[2][NBX][4];
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int t = 0; t < NBX; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[w][t][e] = 0;
+      // both strips in one walk over k, sharing the x fragments; a
+      // strip stops after its own k-steps
+      int nks[2], ia[2];
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int strip = ssd::warp_strip(warp, which);
+        nks[which] = ssd::strip_ksteps(strip, L);
+        ia[which] = ssd::STRIP * strip + g8;
+      }
+      const int nk = max(nks[0], nks[1]);
+      for (int ks = 0; ks < nk; ++ks) {
+        const int j = ssd::KSTEP * ks + 2 * t4;
+        float b0[NBX], b1[NBX];
+#pragma unroll
+        for (int t = 0; t < NBX; ++t) {
+          const int col = ssd::KSTEP * (quarter * NBX + t) + g8;
+          b0[t] = xst[ssd::swz(j, col)];
+          b1[t] = xst[ssd::swz(j + 1, col)];
+        }
+        const float* s0 = sc + j * SC_LD;
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+          if (ks >= nks[which]) continue;
+          FragA fa;
+          fa.set(s0[ia[which]], s0[ia[which] + 8], s0[SC_LD + ia[which]],
+                 s0[SC_LD + ia[which] + 8]);
+#pragma unroll
+          for (int t = 0; t < NBX; ++t)
+            mma_step(acc[which][t], fa, b0[t], b1[t]);
+        }
+      }
+      // y from the accumulator layout: rows ia, ib; columns col, col + 1
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + g8 + 8 * half;
+          if (i >= L) continue;
+          float* yr = a.y + ((row0 + i) * H + h) * P;
+#pragma unroll
+          for (int t = 0; t < NBX; ++t) {
+            const int col = ssd::KSTEP * (quarter * NBX + t) + 2 * t4;
+            if (col < P)
+              *reinterpret_cast<float2*>(yr + col) = make_float2(
+                  static_cast<float>(acc[which][t][2 * half]),
+                  static_cast<float>(acc[which][t][2 * half + 1]));
+          }
+        }
+      }
+    } else {
+      // lane (rp, cg) owns rows i0 + 2 rp, + 1 of each of its strips and
+      // the 4-column groups quarter * 2 NBX + cg + 4 q: 8- and 16-byte
+      // reads of scores and x, 8 FMAs a pair of reads
+      const int rp = lane / 4, cg = lane % 4;
+      float acc[2][NQ][2][4];
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[w][q][r][c] = 0.0f;
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
+        const int r0 = i0 + 2 * rp;
+        // columns in fours: the rows past L of x and of the scores are 0
+        const int jn = i0 < L ? min(i0 + ssd::STRIP, (L + 3) & ~3) : 0;
+        for (int j0 = 0; j0 < jn; j0 += 4) {
+          float2 s2[4];
+          float4 x4[4][NQ];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            s2[u] = ld2(sc + (j0 + u) * SC_LD + r0);
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+              if (cg + 4 * q < 2 * NBX)
+                x4[u][q] = ld4(xst + ssd::swz(
+                    j0 + u, 4 * (quarter * 2 * NBX + cg + 4 * q)));
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              if (cg + 4 * q >= 2 * NBX) continue;
+              const float sv[2] = {s2[u].x, s2[u].y};
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                float* o = acc[which][q][r];
+                o[0] = fmaf(sv[r], x4[u][q].x, o[0]);
+                o[1] = fmaf(sv[r], x4[u][q].y, o[1]);
+                o[2] = fmaf(sv[r], x4[u][q].z, o[2]);
+                o[3] = fmaf(sv[r], x4[u][q].w, o[3]);
+              }
+            }
+        }
+      }
+      // y: 16-byte stores on the TMA route (P % 4 == 0)
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const int r0 = ssd::STRIP * ssd::warp_strip(warp, which) + 2 * rp;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int col = 4 * (quarter * 2 * NBX + cg + 4 * q);
+          if (cg + 4 * q >= 2 * NBX || col >= P) continue;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (r0 + r >= L) continue;
+            float* yr = a.y + ((row0 + r0 + r) * H + h) * P + col;
+            const float* v = acc[which][q][r];
+            if constexpr (kTMA) {
+              *reinterpret_cast<float4*>(yr) =
+                  make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                if (col + c < P) yr[c] = v[c];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();     // ring slot s, cum and dt, sc free
+    fill_slot(n + STAGES);
+  }
+}
+
+// Sets the kernel's shared-memory limit once per device and caches its
+// blocks per SM for each count of C/B boxes; returns a cudaError_t.
+template <int NBX, bool kTMA, bool kTC>
+int prepare(int nbn, int& blocks_per_sm) {
+  static std::atomic<uint64_t> ready{0};   // bit d: limit set on device d
+  static std::atomic<int> occ[MAX_N / BOX + 1];
+  auto kernel = ssd_kernel<NBX, kTMA, kTC>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(G, (H + HPB - 1) / HPB);
-  ssd_intra_chunk_kernel<NC><<<grid, THREADS, smem, stream>>>(
-      x, dt, cum, Bm, Cm, y, L, H, P, N);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  const uint64_t bit = uint64_t{1} << dev;
+  if (!(ready.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(NBX, MAX_N / BOX));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready.fetch_or(bit);
+  }
+  int n = occ[nbn].load();
+  if (n == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, THREADS, smem_bytes(NBX, nbn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    occ[nbn].store(n);
+  }
+  blocks_per_sm = n;
+  return 0;
+}
+
+// A tensor map over a row-major f32 tensor of `rank` dims (innermost
+// first), in boxes of 32 columns, 128-byte swizzled; coordinates outside
+// the tensor read as 0.
+CUresult make_map(CUtensorMap* map, const float* ptr, int rank,
+                  const cuuint64_t* dims, const cuuint32_t* box) {
+  cuuint64_t strides[2];
+  cuuint64_t row = dims[0] * 4;
+  for (int d = 1; d < rank; ++d) {
+    strides[d - 1] = row;
+    row *= dims[d];
+  }
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(ptr),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int NBX, bool kTMA, bool kTC>
+int launch(const Args& a, cudaStream_t stream) {
+  int per_sm = 0;
+  int err = prepare<NBX, kTMA, kTC>(a.nbn, per_sm);
+  if (err != 0) return err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tx{}, tc{}, tb{};
+  if (kTMA) {
+    const cuuint64_t rows = static_cast<cuuint64_t>(a.G) * a.L;
+    const cuuint64_t xd[3] = {static_cast<cuuint64_t>(a.P),
+                              static_cast<cuuint64_t>(a.H), rows};
+    const cuuint32_t xb[3] = {BOX, 1, static_cast<cuuint32_t>(a.L)};
+    const cuuint64_t nd[2] = {static_cast<cuuint64_t>(a.N), rows};
+    const cuuint32_t nb[2] = {BOX, static_cast<cuuint32_t>(a.L)};
+    if (make_map(&tx, a.x, 3, xd, xb) != CUDA_SUCCESS ||
+        make_map(&tc, a.Cm, 2, nd, nb) != CUDA_SUCCESS ||
+        make_map(&tb, a.Bm, 2, nd, nb) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t items = static_cast<int64_t>(a.G) * a.H;
+  int64_t blocks = static_cast<int64_t>(sms) * per_sm;
+  blocks = std::min(blocks, (items + MIN_ITEMS - 1) / MIN_ITEMS);
+  ssd_kernel<NBX, kTMA, kTC>
+      <<<static_cast<unsigned>(blocks), THREADS,
+         smem_bytes(NBX, a.nbn), stream>>>(tx, tc, tb, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTMA, bool kTC>
+int dispatch(const Args& a, cudaStream_t st) {
+  switch ((a.P + BOX - 1) / BOX) {
+    case 1: return launch<1, kTMA, kTC>(a, st);
+    case 2: return launch<2, kTMA, kTC>(a, st);
+    case 3: return launch<3, kTMA, kTC>(a, st);
+    case 4: return launch<4, kTMA, kTC>(a, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
+// Whether shapes with this P and N take the TMA route (tensor cores);
+// the others take the cp.async route (FMAs).  Tensors off 16-byte
+// boundaries take the cp.async route too.
+extern "C" int ssd_intra_chunk_route(int P, int N) {
+  return P % 4 == 0 && N % 4 == 0;
+}
+
+// Dynamic shared memory of one block for this P and N, in bytes (0
+// outside the shapes the kernel takes).
+extern "C" int ssd_intra_chunk_smem(int P, int N) {
+  if (P < 1 || P > MAX_P || N < 1 || N > MAX_N) return 0;
+  return smem_bytes((P + BOX - 1) / BOX, (N + BOX - 1) / BOX);
+}
+
 // Shapes as above.  Launches on `stream` and returns the launch's
 // cudaError_t (0 on success); refuses L outside 1..64, P outside 1..128,
-// N outside 1..128 and more than 65535 head groups.
+// N outside 1..128.
 extern "C" int ssd_intra_chunk_fwd(const float* x, const float* dt,
                                    const float* cum, const float* Bm,
                                    const float* Cm, float* y, int G, int L,
                                    int H, int P, int N, void* stream) {
   if (L < 1 || L > MAX_L || P < 1 || P > MAX_P || N < 1 || N > MAX_N ||
-      H < 1 || (H + HPB - 1) / HPB > 65535)
+      H < 1 || G < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (G == 0) return 0;
+  const Args a{x, dt, cum, Bm, Cm, y, G, L, H, P, N, (N + BOX - 1) / BOX};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((P + 15) / 16) {
-    case 1: return launch<1>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 2: return launch<2>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 3: return launch<3>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 4: return launch<4>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 5: return launch<5>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 6: return launch<6>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 7: return launch<7>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-    case 8: return launch<8>(x, dt, cum, Bm, Cm, y, G, L, H, P, N, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (ssd_intra_chunk_route(P, N) && aligned16(x) && aligned16(Bm) &&
+      aligned16(Cm) && aligned16(y))
+    return dispatch<true, true>(a, st);
+  return dispatch<false, false>(a, st);
 }

@@ -4,7 +4,9 @@
 ``repro.kernels.mamba2_scan.ops.ssd_intra_chunk``.  For CUDA tensors it
 launches ``csrc/ssd_intra_chunk.cu``; for CPU tensors it runs the plain
 version ``ref.intra_chunk_ref``.  There is no fallback from one to the
-other.  ``ssd_intra_chunk.launches`` counts the kernel launches.
+other.  ``ssd_intra_chunk.launches`` counts the kernel launches;
+``route(P, N)`` names the kernel's route for a shape, ``shared_memory``
+its shared memory a block.
 """
 from __future__ import annotations
 
@@ -47,9 +49,8 @@ def _launch(x, dt, cum, Bm, Cm) -> torch.Tensor:
         raise ValueError(f"ssd_intra_chunk: the kernel takes L <= "
                          f"{MAX_CHUNK}, P <= {MAX_HEAD_DIM}, N <= "
                          f"{MAX_STATE}; got L={L}, P={P}, N={N}")
-    fn = _build.library("ssd_intra_chunk").ssd_intra_chunk_fwd
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _build.function("ssd_intra_chunk", "ssd_intra_chunk_fwd",
+                         _ARGTYPES)
     x, dt, cum, Bm, Cm = (t.contiguous() for t in (x, dt, cum, Bm, Cm))
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -58,6 +59,22 @@ def _launch(x, dt, cum, Bm, Cm) -> torch.Tensor:
                     N, stream), "ssd_intra_chunk_fwd")
     ssd_intra_chunk.launches += 1
     return y
+
+
+def route(P: int, N: int) -> str:
+    """The kernel's route for head dim P and state N (tensors on 16-byte
+    boundaries, as fresh allocations are): "tma" (TMA loads, f64
+    products on the tensor cores) or "cp.async" (4-byte cp.async loads,
+    f32 FMA products)."""
+    fn = _build.function("ssd_intra_chunk", "ssd_intra_chunk_route",
+                         [_I, _I])
+    return "tma" if fn(P, N) else "cp.async"
+
+
+def shared_memory(P: int, N: int) -> int:
+    """Bytes of dynamic shared memory a block of the kernel takes."""
+    return _build.function("ssd_intra_chunk", "ssd_intra_chunk_smem",
+                           [_I, _I])(P, N)
 
 
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,

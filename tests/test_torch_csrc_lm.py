@@ -3,12 +3,17 @@ the host with g++ and held against the port's plain PyTorch versions.
 
 ``flash_tile.cuh`` (band mask, k-tile skip and no-mask tests,
 online-softmax steps, the split of a probability into two bfloat16
-terms) and ``ssd_tile.cuh`` (decay and score of one (i, j) pair) are the
-__host__ __device__ functions the CUDA kernels call.  The shim below
+terms) and ``ssd_tile.cuh`` (decay and score of one (i, j) pair; the SSD
+kernel's triangle walk, score pairs, C.B^T tiles, persistent item ranges,
+ring slots, swizzled layout and TF32 split) are the __host__ __device__
+functions the CUDA kernels call.  The shim below
 runs the kernels' algorithms serially with them -- the flash kernel's
 q-tile / k-tile walk with its skipped tiles and ragged edges, the SSD
-kernel's C.B^T-then-scores product -- so a wrong mask, a skipped live
-tile or a mis-scaled online update shows here, before any GPU runs it.
+kernel's C.B^T-then-scores product, and the Hopper SSD kernel's walk
+(C.B^T over its tiles, the scores of its score pairs, the products over
+each strip's k-steps, in f64 sums as its tensor cores take them, or in
+3xTF32) -- so a wrong mask, a skipped live tile or a mis-scaled online
+update shows here, before any GPU runs it.
 The bf16 walk is the Hopper kernel's arithmetic: bf16 q, k, v, scores
 in f32, the no-mask shortcut on full tiles, the softmax in log2 units
 (exp2f of one FMA), P split into two bf16 terms for the P.V product.  Tolerances are the JAX tests': 2e-5 for attention,
@@ -16,6 +21,7 @@ in f32, the no-mask shortcut on full tiles, the softmax in log2 units
 element, as chip_smoke.py holds the kernel.
 """
 import ctypes
+import importlib.util
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,6 +38,11 @@ from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref  # noqa: E402
 
 KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "kernels"
+_spec = importlib.util.spec_from_file_location(
+    "stress_lm_kernels",
+    Path(__file__).resolve().parents[1] / "scripts" / "stress_lm_kernels.py")
+stress = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(stress)
 
 SHIM = r"""
 #include <stdint.h>
@@ -175,6 +186,103 @@ void h_ssd(const float* x, const float* dt, const float* cum,
 void h_decay(const float* cum, float* out, int L) {
   for (int i = 0; i < L; ++i)
     for (int j = 0; j < L; ++j) out[i * L + j] = ssd::decay(cum[i], cum[j], i, j);
+}
+// rows: i, j of score pair idx
+void h_score_pairs(int32_t* ij) {
+  for (int idx = 0; idx < ssd::SCORE_PAIRS; ++idx)
+    ssd::score_pair(idx, ij[2 * idx], ij[2 * idx + 1]);
+}
+// rows: strip and k-steps of warp w (of 8), strip `which`
+void h_warp_walk(int L, int32_t* out) {
+  for (int w = 0; w < 8; ++w)
+    for (int which = 0; which < 2; ++which) {
+      const int strip = ssd::warp_strip(w, which);
+      out[4 * w + 2 * which] = strip;
+      out[4 * w + 2 * which + 1] = ssd::strip_ksteps(strip, L);
+    }
+}
+void h_diag_block(int32_t* out) {
+  for (int i = 0; i < ssd::MAX_L; ++i)
+    for (int j = 0; j < ssd::MAX_L; ++j)
+      out[i * ssd::MAX_L + j] = ssd::diag_block(i, j);
+}
+void h_cb_tiles(int32_t* rc) {
+  for (int q = 0; q < ssd::CB_TILES; ++q) ssd::cb_tile(q, rc[2 * q], rc[2 * q + 1]);
+}
+void h_block_items(int64_t total, int nb, int64_t* lohi) {
+  for (int b = 0; b < nb; ++b) ssd::block_items(total, b, nb, lohi[2 * b], lohi[2 * b + 1]);
+}
+void h_ring(int n, int stages, int32_t* out) {
+  for (int k = 0; k < n; ++k) {
+    out[2 * k] = ssd::ring_stage(k, stages);
+    out[2 * k + 1] = static_cast<int32_t>(ssd::ring_phase(k, stages));
+  }
+}
+void h_swz(int32_t* out) {   // rows < 64 by columns < 128
+  for (int r = 0; r < ssd::MAX_L; ++r)
+    for (int c = 0; c < 128; ++c) out[r * 128 + c] = ssd::swz(r, c);
+}
+void h_tf32_split(const float* x, float* hi, float* lo, int64_t n) {
+  for (int64_t k = 0; k < n; ++k) ssd::split_tf32(x[k], hi[k], lo[k]);
+}
+// one product term a * b in 3xTF32, f32 sums, the small terms first
+static float mul3(float a, float b, float acc) {
+  float ah, al, bh, bl;
+  ssd::split_tf32(a, ah, al);
+  ssd::split_tf32(b, bh, bl);
+  acc += al * bh;
+  acc += ah * bl;
+  return acc + ah * bh;
+}
+// the Hopper SSD kernel's walk for one chunk and one head: C.B^T over
+// its tiles, the scores of its pairs (mask on the diagonal blocks only),
+// the product over each strip's k-steps; mode 0: sums in f64 rounded
+// once (the tensor cores' f64 route), mode 1: 3xTF32 in f32
+void h_ssd_walk(const float* x, const float* dt, const float* cum,
+                const float* B, const float* C, float* y, int L, int P,
+                int N, int mode) {
+  const int M = ssd::MAX_L;
+  std::vector<float> cb(M * M, 0.0f), sc(M * M, 0.0f);
+  for (int q = 0; q < ssd::CB_TILES; ++q) {
+    int r, c;
+    ssd::cb_tile(q, r, c);
+    const int i0 = ssd::STRIP * r, j0 = ssd::KSTEP * c;
+    if (i0 >= L || j0 >= L) continue;
+    for (int i = i0; i < i0 + ssd::STRIP; ++i)
+      for (int j = j0; j < j0 + ssd::KSTEP; ++j) {
+        double d = 0.0;
+        float f = 0.0f;
+        for (int n = 0; n < N; ++n) {
+          const float cv = i < L ? C[i * N + n] : 0.0f;
+          const float bv = j < L ? B[j * N + n] : 0.0f;
+          d += static_cast<double>(cv) * bv;
+          f = mul3(cv, bv, f);
+        }
+        cb[j * M + i] = mode == 0 ? static_cast<float>(d) : f;
+      }
+  }
+  for (int idx = 0; idx < ssd::SCORE_PAIRS; ++idx) {
+    int i, j;
+    ssd::score_pair(idx, i, j);
+    if (i < L && j < L)
+      sc[j * M + i] = ssd::diag_block(i, j)
+                          ? ssd::score(cb[j * M + i], cum[i], cum[j], dt[j], i, j)
+                          : ssd::score_below(cb[j * M + i], cum[i], cum[j], dt[j]);
+  }
+  for (int r = 0; r < 4; ++r) {
+    const int nks = ssd::strip_ksteps(r, L);
+    for (int i = ssd::STRIP * r; i < ssd::STRIP * (r + 1) && i < L; ++i)
+      for (int p = 0; p < P; ++p) {
+        double d = 0.0;
+        float f = 0.0f;
+        for (int j = 0; j < ssd::KSTEP * nks; ++j) {
+          const float xv = j < L ? x[j * P + p] : 0.0f;
+          d += static_cast<double>(sc[j * M + i]) * xv;
+          f = mul3(sc[j * M + i], xv, f);
+        }
+        y[i * P + p] = mode == 0 ? static_cast<float>(d) : f;
+      }
+  }
 }
 }
 """
@@ -349,3 +457,179 @@ def test_flash_bf16_split_walk_matches_plain(lib, S, T, hd, causal, window,
     got = torch.from_numpy(out).to(torch.bfloat16).float()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got, want, rtol=2.0 ** -6, atol=1e-5)
+
+
+# ---- the Hopper SSD kernel's schedule and arithmetic ------------------
+
+def _i32(n):
+    return np.zeros(n, np.int32)
+
+
+def test_ssd_score_pairs_cover_every_strip_once(lib):
+    """Pair idx < 2560 runs over each strip's rows by the columns
+    j < 16 (strip + 1), each exactly once: the scores the products read."""
+    ij = _i32(2 * 2560)
+    lib.h_score_pairs(_p(ij))
+    got = sorted(map(tuple, ij.reshape(-1, 2).tolist()))
+    want = sorted((i, j) for i in range(64) for j in range(16 * (i // 16 + 1)))
+    assert got == want
+
+
+@pytest.mark.parametrize("L", [1, 8, 17, 40, 63, 64])
+def test_ssd_warp_walk_covers_the_triangle(lib, L):
+    """Each of the 8 warps takes strips w % 2 and 3 - w % 2; a strip's
+    k-steps reach every j <= i of its rows below L; at L = 64 every warp
+    walks 10 k-steps; the pairs above the diagonal are all in diagonal
+    blocks."""
+    walk = _i32(32)
+    lib.h_warp_walk(L, _p(walk))
+    walk = walk.reshape(8, 2, 2)
+    for w in range(8):
+        assert sorted(walk[w, :, 0]) == sorted([w % 2, 3 - w % 2])
+        for strip, nks in walk[w]:
+            rows = [i for i in range(16 * strip, 16 * strip + 16) if i < L]
+            need = max(rows, default=-1) + 1      # columns j <= i of them
+            assert 8 * nks >= need and 8 * (nks - 1) < max(need, 1)
+    if L == 64:
+        assert (walk[:, :, 1].sum(1) == 10).all()
+    diag = _i32(64 * 64)
+    lib.h_diag_block(_p(diag))
+    diag = diag.reshape(64, 64).astype(bool)
+    i, j = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    assert (diag == (j >= 16 * (i // 16))).all()
+    assert diag[j > i].all()
+
+
+def test_ssd_cb_tiles_are_the_lower_triangle(lib):
+    """The 20 C.B^T tiles (16 rows by 8 columns, c <= 2r + 1) are
+    distinct and cover every pair the scores read."""
+    rc = _i32(40)
+    lib.h_cb_tiles(_p(rc))
+    tiles = list(map(tuple, rc.reshape(-1, 2).tolist()))
+    assert len(set(tiles)) == 20
+    assert all(0 <= r < 4 and 0 <= c <= 2 * r + 1 for r, c in tiles)
+    covered = {(i, j) for r, c in tiles for i in range(16 * r, 16 * r + 16)
+               for j in range(8 * c, 8 * c + 8)}
+    assert covered == {(i, j) for i in range(64)
+                       for j in range(16 * (i // 16 + 1))}
+
+
+@pytest.mark.parametrize("total,nb", [(2560, 264), (400, 264), (48, 48),
+                                      (7, 3), (91, 264)])
+def test_ssd_block_items_partition_the_items(lib, total, nb):
+    lohi = np.zeros(2 * nb, np.int64)
+    lib.h_block_items(ctypes.c_int64(total), nb, _p(lohi))
+    lo, hi = lohi[0::2], lohi[1::2]
+    assert lo[0] == 0 and hi[-1] == total and (lo[1:] == hi[:-1]).all()
+    sizes = hi - lo
+    assert sizes.max() - sizes.min() <= 1
+
+
+@pytest.mark.parametrize("stages", [2, 3])
+def test_ssd_ring_slots_and_phases(lib, stages):
+    """Item n fills slot n % stages; its wait parity is the number of
+    earlier fills of that slot, mod 2 (an mbarrier's phase)."""
+    n = 40
+    out = _i32(2 * n)
+    lib.h_ring(n, stages, _p(out))
+    fills = {}
+    for k, (stage, phase) in enumerate(out.reshape(-1, 2).tolist()):
+        assert stage == k % stages
+        assert phase == fills.get(stage, 0) % 2
+        fills[stage] = fills.get(stage, 0) + 1
+
+
+def test_ssd_swizzle_is_the_tma_128_byte_layout(lib):
+    """swz(r, c) is the word TMA's 128-byte swizzle puts element (r, c)
+    of a stack of 32-column boxes of 64 rows at: byte address bits
+    [4:6] XOR bits [7:9], within each 8 KB box; a bijection."""
+    got = _i32(64 * 128)
+    lib.h_swz(_p(got))
+    r, c = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    byte = (c // 32) * 8192 + r * 128 + (c % 32) * 4
+    byte = byte ^ (((byte >> 7) & 7) << 4)
+    np.testing.assert_array_equal(got.reshape(64, 128), byte // 4)
+    assert len(np.unique(got)) == got.size
+
+
+def test_tf32_split_rounds_to_nearest_ties_away(lib):
+    """hi is x rounded to 10 explicit mantissa bits, to nearest with ties
+    away from zero (cvt.rna.tf32.f32); lo is the rest, rounded the same
+    way; x - hi - lo is within 2^-22 |x|."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.standard_normal(20000) * 10.0 ** rng.integers(
+        -8, 8, 20000), [0.0, 1.0, -1.0, 1e-30]]).astype(np.float32)
+    ties = (rng.integers(0x3F000000, 0x41000000, 2000).astype(np.uint32)
+            & ~np.uint32(0x1FFF) | 0x1000).view(np.float32)
+    x = np.ascontiguousarray(np.concatenate([x, ties, -ties]))
+    hi, lo = np.empty_like(x), np.empty_like(x)
+    lib.h_tf32_split(_p(x), _p(hi), _p(lo), ctypes.c_int64(x.size))
+
+    def rna(v):
+        bits = v.view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+    np.testing.assert_array_equal(hi, rna(x))
+    np.testing.assert_array_equal(lo, rna((x - hi).astype(np.float32)))
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all()
+    assert (np.abs(ties - hi[x.size - 2 * ties.size:][:ties.size])
+            <= 2.0 ** -11 * np.abs(ties)).all()
+    resid = np.abs(x.astype(np.float64) - hi - lo)
+    assert (resid <= 2.0 ** -22 * np.abs(x.astype(np.float64))).all()
+
+
+def _ssd_case(seed, L, P, N):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((L, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal(L))).astype(np.float32)
+    cum = np.cumsum(-np.log1p(np.exp(rng.standard_normal(L)))).astype(
+        np.float32)
+    B, C = (rng.standard_normal((L, N)).astype(np.float32) for _ in "BC")
+    return x, dt, cum, B, C
+
+
+def _as_chunk(x, dt, cum, B, C):
+    """One chunk, one head, in the wrapper's (G, L, H, P) layout."""
+    x, dt, cum, B, C = map(torch.from_numpy, (x, dt, cum, B, C))
+    return (x[None, :, None], dt[None, :, None], cum[None, :, None], B[None],
+            C[None])
+
+
+@pytest.mark.parametrize("L,P,N", [(64, 64, 64), (64, 16, 8), (40, 8, 16),
+                                   (17, 5, 3), (1, 4, 4), (51, 12, 70)])
+def test_ssd_kernel_walk_matches_plain(lib, L, P, N):
+    """The kernel's walk with f64 sums (its tensor-core route) against the
+    plain version at the card tests' 2e-5, and inside the float32
+    rounding bound of scripts/stress_lm_kernels.py."""
+    x, dt, cum, B, C = _ssd_case(L * P + N, L, P, N)
+    y = np.empty_like(x)
+    lib.h_ssd_walk(_p(x), _p(dt), _p(cum), _p(B), _p(C), _p(y), L, P, N, 0)
+    args = _as_chunk(x, dt, cum, B, C)
+    want = intra_chunk_ref(*args)[0, :, 0]
+    np.testing.assert_allclose(y, want.numpy(), rtol=2e-5, atol=2e-5)
+    exact, err = stress.ssd_error_bound(*args)
+    assert not stress.over_bound(torch.from_numpy(y)[None, :, None], exact,
+                                 err, torch.float32).any()
+
+
+@pytest.mark.parametrize("L,P,N", [(64, 64, 64), (40, 8, 16)])
+def test_ssd_3xtf32_walk_stays_inside_the_bound(lib, L, P, N):
+    """The 3xTF32 alternative (both products, f32 sums, the lo * lo term
+    dropped) over a whole (L, L).(L, P) tile stays inside the stress
+    script's float32 rounding bound, though further from the plain
+    version than the f64 route."""
+    x, dt, cum, B, C = _ssd_case(7 + L, L, P, N)
+    y3, y64 = np.empty_like(x), np.empty_like(x)
+    lib.h_ssd_walk(_p(x), _p(dt), _p(cum), _p(B), _p(C), _p(y3), L, P, N, 1)
+    lib.h_ssd_walk(_p(x), _p(dt), _p(cum), _p(B), _p(C), _p(y64), L, P, N,
+                   0)
+    args = _as_chunk(x, dt, cum, B, C)
+    exact, err = stress.ssd_error_bound(*args)
+    exact = exact[0, :, 0]
+    for y in (y3, y64):
+        assert not stress.over_bound(torch.from_numpy(y)[None, :, None],
+                                     exact[None, :, None], err,
+                                     torch.float32).any()
+    e3 = np.abs(y3 - exact.numpy()).max()
+    e64 = np.abs(y64 - exact.numpy()).max()
+    assert e64 < e3

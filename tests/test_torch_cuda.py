@@ -177,8 +177,17 @@ def test_flash_kernel_refuses_head_dim_over_128(gpu):
     assert attention.launches == before
 
 
-@pytest.mark.parametrize("G,L,H,P,N", [(6, 64, 8, 64, 64), (3, 40, 5, 16, 16),
-                                       (2, 64, 3, 50, 70)])
+@pytest.mark.parametrize("G,L,H,P,N", [
+    (6, 64, 8, 64, 64), (3, 40, 5, 16, 16), (2, 64, 3, 50, 70),
+    (1, 64, 80, 64, 64),      # G = 1
+    (5, 64, 80, 64, 64),      # the smallest serving launch
+    (7, 64, 13, 64, 64),      # H prime: items cross chunks mid-block
+    (9, 1, 4, 64, 64),        # L = 1
+    (4, 17, 6, 32, 16),       # L = 17: ragged strips and k-steps
+    (3, 64, 5, 128, 128),     # P = N = 128
+    (3, 48, 6, 64, 70),       # N % 4 != 0: the cp.async route
+    (2, 33, 4, 7, 5),         # odd P and N, ragged L: the cp.async route
+])
 def test_ssd_kernel_matches_plain(gpu, G, L, H, P, N):
     from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
     g = torch.Generator(device=gpu).manual_seed(G * L)
@@ -194,6 +203,16 @@ def test_ssd_kernel_matches_plain(gpu, G, L, H, P, N):
     want = ssd_intra_chunk(*(t.cpu() for t in (x, dt, cum, Bm, Cm)))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
+
+
+def test_ssd_route_follows_the_shape(gpu):
+    """The serving path's shape takes the TMA route (3xTF32 on the tensor
+    cores); shapes whose rows TMA cannot address take the cp.async one."""
+    from repro_torch.kernels.mamba2_scan.ops import route
+    assert route(64, 64) == "tma"
+    assert route(128, 128) == "tma"
+    assert route(50, 70) == "cp.async"
+    assert route(64, 70) == "cp.async"
 
 
 def test_smoke_zamba2_on_gpu_matches_cpu(gpu):
