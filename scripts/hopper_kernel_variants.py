@@ -20,14 +20,16 @@ loaded in place of the committed library for its measurements:
   memory for the chunk (``blk_b`` <= 14 at 16 KB an image);
 - the intra-chunk SSD kernel (the serving path's shapes, L=64, H=80,
   P=64, N=64, at G=32 and G=5 chunks): both products as f32 FMAs on the
-  CUDA cores (the kernel's cp.async route) or in 3xTF32 on the tensor
-  cores, instead of f64 on the tensor cores; a ring of three x tiles
+  CUDA cores or in 3xTF32 on the tensor cores (each written out below
+  in place of the kernel's product functions), instead of f64 on the
+  tensor cores; a ring of three x tiles
   instead of two; grids of at least 1 or 4 (chunk, head) items a block
   instead of at least 2; and three diagnostics
   that leave out the products, C.B^T, or everything but the loads and
   stores (their results are wrong by design; they show where the time
-  goes).  Times are device times: the launches queue behind a sleep on
-  the stream, so the host's time per call does not show.
+  goes).  Times are device times (the launches queue behind a sleep on
+  the stream, so the host's time per call does not show) and CUDA
+  events around 20 back-to-back calls, as chip_smoke.py's `ms`.
 
 Every variant's results are compared with the committed kernel's:
 attention against the plain version (max error, elements off by more
@@ -102,20 +104,184 @@ SWEEP = {
 }
 
 
-_SSD_NO_PRODUCT = (SSD_CU, "      for (int ks = 0; ks < nk; ++ks) {",
-                   "      for (int ks = 0; ks < 0 * nk; ++ks) {")
+# The committed kernel's products (f64 mma.sync), as regions of its source
+_SSD_MMA = ("// The products run on the tensor cores in f64",
+            "__device__ __forceinline__ float2 ld2(")
+_SSD_PRODUCTS = ("// One warp's C.B^T tile:", "struct Args {")
+_SSD_3XTF32 = r"""// 3xTF32: each f32 operand split into two TF32 terms (hi rounded to
+// nearest, ties away, as cvt.rna.tf32.f32 does; lo the rest, rounded the
+// same way), hi * hi + hi * lo + lo * hi in f32 accumulators, the small
+// terms first; lo * lo (about 2^-22 relative) is dropped.
+using Acc = float;
+
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+// d += a * b over one m16n8k8 tile, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float h, l;
+      split_tf32(a[k], h, l);
+      hi[k] = __float_as_uint(h);
+      lo[k] = __float_as_uint(l);
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_step(Acc (&d)[4], const FragA& a,
+                                         float b0, float b1) {
+  float bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, a.lo, bh0, bh1);
+  mma_tf32(d, a.hi, bl0, bl1);
+  mma_tf32(d, a.hi, bh0, bh1);
+}
+
+"""
+_SSD_FMA = r"""__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// C.B^T by f32 FMAs: lane (rq, cc) owns rows i0 + 4 rq .. + 3 of column
+// j0 + cc; 16-byte reads along the state dimension, one partial sum per
+// row and lane of the read.
+__device__ __forceinline__ void cb_tile_product(const float* cs,
+                                                const float* bs, float* cb,
+                                                int i0, int j0, int N,
+                                                int lane) {
+  const int rq = lane / 8, cc = lane % 8;
+  float d[4][4] = {};
+#pragma unroll 4
+  for (int n = 0; n < N; n += 4) {
+    const float4 bv = ld4(bs + ssd::swz(j0 + cc, n));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 cv = ld4(cs + ssd::swz(i0 + 4 * rq + k, n));
+      d[k][0] = fmaf(cv.x, bv.x, d[k][0]);
+      d[k][1] = fmaf(cv.y, bv.y, d[k][1]);
+      d[k][2] = fmaf(cv.z, bv.z, d[k][2]);
+      d[k][3] = fmaf(cv.w, bv.w, d[k][3]);
+    }
+  }
+  float e[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    e[k] = (d[k][0] + d[k][1]) + (d[k][2] + d[k][3]);
+  *reinterpret_cast<float4*>(cb + (j0 + cc) * CB_LD + i0 + 4 * rq) =
+      make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// scores.x by f32 FMAs: lane (rp, cg) owns rows i0 + 2 rp, + 1 of each of
+// its strips and the 4-column groups quarter * 2 NBX + cg + 4 q: 8- and
+// 16-byte reads of scores and x, 8 FMAs a pair of reads.
+template <int NBX, bool kVec>
+__device__ __forceinline__ void item_product(const float* sc,
+                                             const float* xs, float* y,
+                                             int64_t ld, int L, int P,
+                                             int warp, int lane) {
+  constexpr int NQ = (NBX + 1) / 2;
+  const int quarter = warp >> 1, rp = lane / 4, cg = lane % 4;
+  float acc[2][NQ][2][4];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[w][q][r][c] = 0.0f;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
+    const int r0 = i0 + 2 * rp;
+    // columns in fours: the rows past L of x and of the scores are 0
+    const int jn = i0 < L ? min(i0 + ssd::STRIP, (L + 3) & ~3) : 0;
+    for (int j0 = 0; j0 < jn; j0 += 4) {
+      float2 s2[4];
+      float4 x4[4][NQ];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s2[u] = ld2(sc + (j0 + u) * SC_LD + r0);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          if (cg + 4 * q < 2 * NBX)
+            x4[u][q] = ld4(xs + ssd::swz(
+                j0 + u, 4 * (quarter * 2 * NBX + cg + 4 * q)));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (cg + 4 * q >= 2 * NBX) continue;
+          const float sv[2] = {s2[u].x, s2[u].y};
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float* o = acc[which][q][r];
+            o[0] = fmaf(sv[r], x4[u][q].x, o[0]);
+            o[1] = fmaf(sv[r], x4[u][q].y, o[1]);
+            o[2] = fmaf(sv[r], x4[u][q].z, o[2]);
+            o[3] = fmaf(sv[r], x4[u][q].w, o[3]);
+          }
+        }
+    }
+  }
+  // y: 16-byte stores when kVec
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int r0 = ssd::STRIP * ssd::warp_strip(warp, which) + 2 * rp;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int col = 4 * (quarter * 2 * NBX + cg + 4 * q);
+      if (cg + 4 * q >= 2 * NBX || col >= P) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r0 + r >= L) continue;
+        float* yr = y + (r0 + r) * ld + col;
+        const float* v = acc[which][q][r];
+        if constexpr (kVec) {
+          *reinterpret_cast<float4*>(yr) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (col + c < P) yr[c] = v[c];
+        }
+      }
+    }
+  }
+}
+
+"""
+_SSD_NO_PRODUCT = (SSD_CU, "  for (int ks = 0; ks < nk; ++ks) {",
+                   "  for (int ks = 0; ks < 0 * nk; ++ks) {")
 _SSD_NO_CB = (SSD_CU, "      chunk_cb();\n",
               "      if (a.G < 0) chunk_cb();\n")
 _SSD_NO_SCORES = (SSD_CU,
                   "        at[u] = i < L && j < L ? j * SC_LD + i : -1;",
                   "        at[u] = -1;")
 SSD = {
-    "f32 FMAs on the CUDA cores": [
-        (SSD_CU, "    return dispatch<true, true>(a, st);",
-         "    return dispatch<true, false>(a, st);")],
-    "3xTF32 on the tensor cores": [
-        (SSD_CU, "constexpr bool kF64 = true;",
-         "constexpr bool kF64 = false;")],
+    "f32 FMAs on the CUDA cores": [(SSD_CU, _SSD_PRODUCTS, _SSD_FMA)],
+    "3xTF32 on the tensor cores": [(SSD_CU, _SSD_MMA, _SSD_3XTF32)],
     "ring depth 3": [
         (SSD_CU, "constexpr int STAGES = 2; ", "constexpr int STAGES = 3; ")],
     "at least 1 item a block": [
@@ -136,7 +302,9 @@ KERNEL_NAME = {"flash_attention": "flash_fwd_hopperILi80",
 
 
 def start_build(name: str, lib: str, edits):
-    """Copy the kernel sources, apply ``edits``, start nvcc."""
+    """Copy the kernel sources, apply ``edits`` ((file, old, new): ``old``
+    a string, or a pair of strings that bound the region replaced), start
+    nvcc."""
     d = OUT / name.replace(" ", "_")
     if d.exists():
         shutil.rmtree(d)
@@ -145,6 +313,10 @@ def start_build(name: str, lib: str, edits):
     for rel, old, new in edits:
         p = d / rel
         text = p.read_text()
+        if isinstance(old, tuple):    # the region from old[0] up to old[1]
+            i = text.find(old[0])
+            j = text.find(old[1], i) if i >= 0 else -1
+            old = text[i:j] if j >= 0 else old[0]
         if old not in text:
             raise SystemExit(f"variant {name!r}: {rel} no longer holds "
                              f"{old[:60]!r}")
@@ -204,8 +376,10 @@ def ssd(libs, committed) -> None:
             off = int((~torch.isclose(y.cpu(), host, rtol=2e-5,
                                       atol=2e-5)).sum())
             e = float((y.cpu() - host).abs().max())
+            ev = cuda_ms(lambda: ssd_intra_chunk(*args), reps=20)
             ms = device_ms(lambda: ssd_intra_chunk(*args))
-            line.append(f"G={G} {ms:.4f} ms, max abs err {e:.3g} "
+            line.append(f"G={G} {ms:.4f} ms device, {ev:.4f} ms events "
+                        f"back to back, max abs err {e:.3g} "
                         f"({off} elements off by more than 2e-5), worst "
                         f"error {stress.ratio(y, want, err):.3g} of the "
                         f"bound")

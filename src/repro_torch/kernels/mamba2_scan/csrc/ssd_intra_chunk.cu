@@ -37,16 +37,14 @@
 // warp w multiplies the strips w % 2 and 3 - w % 2 (10 k-steps each at
 // L = 64, `ssd::strip_ksteps`) into a quarter of y's columns.
 //
-// Products.  The TMA route runs both products (C.B^T and scores.x) on the
+// Products.  Both routes run both products (C.B^T and scores.x) on the
 // tensor cores as mma.sync m16n8k8 in f64: the f32 operands convert
-// exactly, the sums are f64, one rounding to f32 at the end.  The f32
-// FMA products (the cp.async route) are shared-memory-bound at this
-// kernel's tile sizes; 3xTF32 (`ssd::split_tf32`, hi*hi + hi*lo + lo*hi
-// in f32 accumulators) is faster than the FMAs but leaves about 12 units
-// of float32 rounding in each product and fails the 2e-5 check against
-// the plain version (scripts/hopper_kernel_variants.py measures both,
-// `kF64` false selects 3xTF32).  Both routes store y from registers, in
-// 16-byte stores on the FMA route.
+// exactly, the sums are f64, one rounding to f32 at the end.  f32 FMAs
+// are shared-memory-bound at this kernel's tile sizes, and 3xTF32 leaves
+// about 12 units of float32 rounding in each product, which fails the
+// 2e-5 check against the plain version (scripts/hopper_kernel_variants.py
+// times both as patches of this file).  y leaves from registers: 8-byte
+// stores on the TMA route, one float a store on the cp.async route.
 //
 // Per-launch host work: the tensor maps (three cuTensorMapEncodeTiled);
 // the shared-memory attribute and the occupancy query run once per
@@ -57,7 +55,6 @@
 
 #include <algorithm>
 #include <atomic>
-#include <type_traits>
 
 #include "../../common/csrc/hopper_async.cuh"
 #include "ssd_tile.cuh"
@@ -89,11 +86,9 @@ __host__ __device__ constexpr int smem_bytes(int nbx, int nbn) {
          8 * (STAGES + 1);
 }
 
-// The tensor-core products: f64 operands and accumulators (the f32
-// inputs convert exactly; one rounding to f32 at the end), or, as
-// scripts/hopper_kernel_variants.py measures, 3xTF32 in f32 accumulators.
-constexpr bool kF64 = true;
-using Acc = std::conditional_t<kF64, double, float>;
+// The products run on the tensor cores in f64: the f32 operands convert
+// exactly, the sums are f64, one rounding to f32 at the end.
+using Acc = double;
 
 // d += a * b over one m16n8k8 tile, f64 operands and accumulators.
 __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
@@ -104,64 +99,131 @@ __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
-// d += a * b over one m16n8k8 tile, TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
-}
-
 // The A operand of one k-step (m16n8k8 layout: a0 row g, a1 row g + 8,
-// a2 and a3 the same rows at k + 4), in f64 or in two TF32 terms.  The
-// kernel's k order: lane t of a quad holds k index t (a0, a1, b0) at
-// column k0 + 2t and k index t + 4 (a2, a3, b1) at column k0 + 2t + 1, so
-// that C and B fragments are one 8-byte load each and the x fragments
-// fall in eight distinct 16-byte chunks of the swizzle.
+// a2 and a3 the same rows at k + 4).  The kernel's k order: lane t of a
+// quad holds k index t (a0, a1, b0) at column k0 + 2t and k index t + 4
+// (a2, a3, b1) at column k0 + 2t + 1, so that C and B fragments are one
+// 8-byte load each and the x fragments fall in eight distinct 16-byte
+// chunks of the swizzle.
 struct FragA {
   double v[4];
-  uint32_t hi[4], lo[4];
   __device__ __forceinline__ void set(float a0, float a1, float a2,
                                       float a3) {
-    const float a[4] = {a0, a1, a2, a3};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if constexpr (kF64) {
-        v[k] = a[k];
-      } else {
-        float h, l;
-        ssd::split_tf32(a[k], h, l);
-        hi[k] = __float_as_uint(h);
-        lo[k] = __float_as_uint(l);
-      }
-    }
+    v[0] = a0;
+    v[1] = a1;
+    v[2] = a2;
+    v[3] = a3;
   }
 };
 
-// d += a * b for the B fragment (b0, b1) of one k-step; 3xTF32 adds the
-// small terms first.
-template <class T>
-__device__ __forceinline__ void mma_step(T (&d)[4], const FragA& a, float b0,
-                                         float b1) {
-  if constexpr (std::is_same_v<T, double>) {
-    mma_f64(d, a.v, b0, b1);
-  } else {
-    float bh0, bl0, bh1, bl1;
-    ssd::split_tf32(b0, bh0, bl0);
-    ssd::split_tf32(b1, bh1, bl1);
-    mma_tf32(d, a.lo, bh0, bh1);
-    mma_tf32(d, a.hi, bl0, bl1);
-    mma_tf32(d, a.hi, bh0, bh1);
-  }
+// d += a * b for the B fragment (b0, b1) of one k-step.
+__device__ __forceinline__ void mma_step(Acc (&d)[4], const FragA& a,
+                                         float b0, float b1) {
+  mma_f64(d, a.v, b0, b1);
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+
+// One warp's C.B^T tile: rows i0 .. i0 + 15 by columns j0 .. j0 + 7 from
+// the swizzled C (cs) and B (bs), into cb transposed ([j][i]).
+__device__ __forceinline__ void cb_tile_product(const float* cs,
+                                                const float* bs, float* cb,
+                                                int i0, int j0, int N,
+                                                int lane) {
+  const int g8 = lane / 4, t4 = lane % 4;
+  // the accumulator layout: rows g8, g8 + 8; columns 2 t4, + 1
+  Acc d[4] = {};
+  for (int k0 = 0; k0 < N; k0 += ssd::KSTEP) {
+    const int kc = k0 + 2 * t4;
+    const float2 ca = ld2(cs + ssd::swz(i0 + g8, kc));
+    const float2 cc = ld2(cs + ssd::swz(i0 + g8 + 8, kc));
+    const float2 bb = ld2(bs + ssd::swz(j0 + g8, kc));
+    FragA fa;
+    fa.set(ca.x, cc.x, ca.y, cc.y);
+    mma_step(d, fa, bb.x, bb.y);
+  }
+  float* o = cb + (j0 + 2 * t4) * CB_LD + i0 + g8;
+  o[0] = static_cast<float>(d[0]);
+  o[CB_LD] = static_cast<float>(d[1]);
+  o[8] = static_cast<float>(d[2]);
+  o[CB_LD + 8] = static_cast<float>(d[3]);
+}
+
+// Warp w's share of one item's y: the rows of its strips w % 2 and
+// 3 - w % 2 by the quarter w / 2 of the columns, from the transposed
+// scores (sc) and the swizzled x tile (xs); y points at row 0 of the
+// item, rows `ld` floats apart.  kVec: 8-byte stores (P % 4 == 0 and y
+// on a 16-byte boundary), else one float a store.
+template <int NBX, bool kVec>
+__device__ __forceinline__ void item_product(const float* sc,
+                                             const float* xs, float* y,
+                                             int64_t ld, int L, int P,
+                                             int warp, int lane) {
+  const int g8 = lane / 4, t4 = lane % 4, quarter = warp >> 1;
+  // the warp's NBX n-tiles of 8 columns in each of its two strips
+  Acc acc[2][NBX][4];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int t = 0; t < NBX; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[w][t][e] = 0;
+  // both strips in one walk over k, sharing the x fragments; a strip
+  // stops after its own k-steps
+  int nks[2], ia[2];
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int strip = ssd::warp_strip(warp, which);
+    nks[which] = ssd::strip_ksteps(strip, L);
+    ia[which] = ssd::STRIP * strip + g8;
+  }
+  const int nk = max(nks[0], nks[1]);
+  for (int ks = 0; ks < nk; ++ks) {
+    const int j = ssd::KSTEP * ks + 2 * t4;
+    float b0[NBX], b1[NBX];
+#pragma unroll
+    for (int t = 0; t < NBX; ++t) {
+      const int col = ssd::KSTEP * (quarter * NBX + t) + g8;
+      b0[t] = xs[ssd::swz(j, col)];
+      b1[t] = xs[ssd::swz(j + 1, col)];
+    }
+    const float* s0 = sc + j * SC_LD;
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      if (ks >= nks[which]) continue;
+      FragA fa;
+      fa.set(s0[ia[which]], s0[ia[which] + 8], s0[SC_LD + ia[which]],
+             s0[SC_LD + ia[which] + 8]);
+#pragma unroll
+      for (int t = 0; t < NBX; ++t) mma_step(acc[which][t], fa, b0[t], b1[t]);
+    }
+  }
+  // y from the accumulator layout: rows ia, ia + 8; columns col, col + 1
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = i0 + g8 + 8 * half;
+      if (i >= L) continue;
+      float* yr = y + i * ld;
+#pragma unroll
+      for (int t = 0; t < NBX; ++t) {
+        const int col = ssd::KSTEP * (quarter * NBX + t) + 2 * t4;
+        const float v0 = static_cast<float>(acc[which][t][2 * half]);
+        const float v1 = static_cast<float>(acc[which][t][2 * half + 1]);
+        if constexpr (kVec) {
+          if (col < P) *reinterpret_cast<float2*>(yr + col) =
+              make_float2(v0, v1);
+        } else {
+          if (col < P) yr[col] = v0;
+          if (col + 1 < P) yr[col + 1] = v1;
+        }
+      }
+    }
+  }
 }
 
 struct Args {
@@ -174,14 +236,12 @@ struct Args {
   int G, L, H, P, N, nbn;
 };
 
-// NBX: 32-column boxes of x (P <= 32 NBX); kTMA: the load route; kTC:
-// products on the tensor cores (else f32 FMAs).
-template <int NBX, bool kTMA, bool kTC>
+// NBX: 32-column boxes of x (P <= 32 NBX); kTMA: the load route.
+template <int NBX, bool kTMA>
 __global__ void __launch_bounds__(THREADS, 2)
     ssd_kernel(const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tc,
                const __grid_constant__ CUtensorMap tb, const Args a) {
-  constexpr int NQ = (NBX + 1) / 2;   // 4-column groups of a lane (FMA)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   float* xs = reinterpret_cast<float*>(smem_raw +
@@ -198,9 +258,6 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   const int L = a.L, H = a.H, P = a.P, N = a.N;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, t4 = lane % 4;
-  // warp w: strips w % 2 and 3 - w % 2, the quarter w / 2 of y's columns
-  const int quarter = warp >> 1;
   int64_t lo, hi;
   ssd::block_items(static_cast<int64_t>(a.G) * H, blockIdx.x, gridDim.x,
                    lo, hi);
@@ -301,49 +358,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       int r, c;
       ssd::cb_tile(q, r, c);
       const int i0 = ssd::STRIP * r, j0 = ssd::KSTEP * c;
-      if (i0 >= L || j0 >= L) continue;
-      if constexpr (kTC) {
-        // the accumulator layout: rows g8, g8 + 8; columns 2 t4, + 1
-        Acc d[4] = {};
-        for (int k0 = 0; k0 < N; k0 += ssd::KSTEP) {
-          const int kc = k0 + 2 * t4;
-          const float2 ca = ld2(cs + ssd::swz(i0 + g8, kc));
-          const float2 cc = ld2(cs + ssd::swz(i0 + g8 + 8, kc));
-          const float2 bb = ld2(bs + ssd::swz(j0 + g8, kc));
-          FragA fa;
-          fa.set(ca.x, cc.x, ca.y, cc.y);
-          mma_step(d, fa, bb.x, bb.y);
-        }
-        float* o = cb + (j0 + 2 * t4) * CB_LD + i0 + g8;
-        o[0] = static_cast<float>(d[0]);
-        o[CB_LD] = static_cast<float>(d[1]);
-        o[8] = static_cast<float>(d[2]);
-        o[CB_LD + 8] = static_cast<float>(d[3]);
-      } else {
-        // f32 FMAs: lane (rq, cc) owns rows i0 + 4 rq .. + 3 of column
-        // j0 + cc; 16-byte reads along the state dimension, one partial
-        // sum per row and lane of the read
-        const int rq = lane / 8, cc = lane % 8;
-        float d[4][4] = {};
-#pragma unroll 4
-        for (int n = 0; n < N; n += 4) {
-          const float4 bv = ld4(bs + ssd::swz(j0 + cc, n));
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float4 cv = ld4(cs + ssd::swz(i0 + 4 * rq + k, n));
-            d[k][0] = fmaf(cv.x, bv.x, d[k][0]);
-            d[k][1] = fmaf(cv.y, bv.y, d[k][1]);
-            d[k][2] = fmaf(cv.z, bv.z, d[k][2]);
-            d[k][3] = fmaf(cv.w, bv.w, d[k][3]);
-          }
-        }
-        float e[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          e[k] = (d[k][0] + d[k][1]) + (d[k][2] + d[k][3]);
-        *reinterpret_cast<float4*>(cb + (j0 + cc) * CB_LD + i0 + 4 * rq) =
-            make_float4(e[0], e[1], e[2], e[3]);
-      }
+      if (i0 < L && j0 < L) cb_tile_product(cs, bs, cb, i0, j0, N, lane);
     }
   };
 
@@ -400,139 +415,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
     __syncthreads();
 
-    if constexpr (kTC) {
-      // the warp's NBX n-tiles of 8 columns in each of its two strips
-      Acc acc[2][NBX][4];
-#pragma unroll
-      for (int w = 0; w < 2; ++w)
-#pragma unroll
-        for (int t = 0; t < NBX; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[w][t][e] = 0;
-      // both strips in one walk over k, sharing the x fragments; a
-      // strip stops after its own k-steps
-      int nks[2], ia[2];
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const int strip = ssd::warp_strip(warp, which);
-        nks[which] = ssd::strip_ksteps(strip, L);
-        ia[which] = ssd::STRIP * strip + g8;
-      }
-      const int nk = max(nks[0], nks[1]);
-      for (int ks = 0; ks < nk; ++ks) {
-        const int j = ssd::KSTEP * ks + 2 * t4;
-        float b0[NBX], b1[NBX];
-#pragma unroll
-        for (int t = 0; t < NBX; ++t) {
-          const int col = ssd::KSTEP * (quarter * NBX + t) + g8;
-          b0[t] = xst[ssd::swz(j, col)];
-          b1[t] = xst[ssd::swz(j + 1, col)];
-        }
-        const float* s0 = sc + j * SC_LD;
-#pragma unroll
-        for (int which = 0; which < 2; ++which) {
-          if (ks >= nks[which]) continue;
-          FragA fa;
-          fa.set(s0[ia[which]], s0[ia[which] + 8], s0[SC_LD + ia[which]],
-                 s0[SC_LD + ia[which] + 8]);
-#pragma unroll
-          for (int t = 0; t < NBX; ++t)
-            mma_step(acc[which][t], fa, b0[t], b1[t]);
-        }
-      }
-      // y from the accumulator layout: rows ia, ib; columns col, col + 1
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = i0 + g8 + 8 * half;
-          if (i >= L) continue;
-          float* yr = a.y + ((row0 + i) * H + h) * P;
-#pragma unroll
-          for (int t = 0; t < NBX; ++t) {
-            const int col = ssd::KSTEP * (quarter * NBX + t) + 2 * t4;
-            if (col < P)
-              *reinterpret_cast<float2*>(yr + col) = make_float2(
-                  static_cast<float>(acc[which][t][2 * half]),
-                  static_cast<float>(acc[which][t][2 * half + 1]));
-          }
-        }
-      }
-    } else {
-      // lane (rp, cg) owns rows i0 + 2 rp, + 1 of each of its strips and
-      // the 4-column groups quarter * 2 NBX + cg + 4 q: 8- and 16-byte
-      // reads of scores and x, 8 FMAs a pair of reads
-      const int rp = lane / 4, cg = lane % 4;
-      float acc[2][NQ][2][4];
-#pragma unroll
-      for (int w = 0; w < 2; ++w)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[w][q][r][c] = 0.0f;
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const int i0 = ssd::STRIP * ssd::warp_strip(warp, which);
-        const int r0 = i0 + 2 * rp;
-        // columns in fours: the rows past L of x and of the scores are 0
-        const int jn = i0 < L ? min(i0 + ssd::STRIP, (L + 3) & ~3) : 0;
-        for (int j0 = 0; j0 < jn; j0 += 4) {
-          float2 s2[4];
-          float4 x4[4][NQ];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            s2[u] = ld2(sc + (j0 + u) * SC_LD + r0);
-#pragma unroll
-            for (int q = 0; q < NQ; ++q)
-              if (cg + 4 * q < 2 * NBX)
-                x4[u][q] = ld4(xst + ssd::swz(
-                    j0 + u, 4 * (quarter * 2 * NBX + cg + 4 * q)));
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) {
-              if (cg + 4 * q >= 2 * NBX) continue;
-              const float sv[2] = {s2[u].x, s2[u].y};
-#pragma unroll
-              for (int r = 0; r < 2; ++r) {
-                float* o = acc[which][q][r];
-                o[0] = fmaf(sv[r], x4[u][q].x, o[0]);
-                o[1] = fmaf(sv[r], x4[u][q].y, o[1]);
-                o[2] = fmaf(sv[r], x4[u][q].z, o[2]);
-                o[3] = fmaf(sv[r], x4[u][q].w, o[3]);
-              }
-            }
-        }
-      }
-      // y: 16-byte stores on the TMA route (P % 4 == 0)
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const int r0 = ssd::STRIP * ssd::warp_strip(warp, which) + 2 * rp;
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const int col = 4 * (quarter * 2 * NBX + cg + 4 * q);
-          if (cg + 4 * q >= 2 * NBX || col >= P) continue;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            if (r0 + r >= L) continue;
-            float* yr = a.y + ((row0 + r0 + r) * H + h) * P + col;
-            const float* v = acc[which][q][r];
-            if constexpr (kTMA) {
-              *reinterpret_cast<float4*>(yr) =
-                  make_float4(v[0], v[1], v[2], v[3]);
-            } else {
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                if (col + c < P) yr[c] = v[c];
-            }
-          }
-        }
-      }
-    }
+    // y: 8-byte stores on the TMA route (P % 4 == 0, y on a 16-byte
+    // boundary)
+    item_product<NBX, kTMA>(sc, xst, a.y + (row0 * H + h) * P,
+                            static_cast<int64_t>(H) * P, L, P, warp, lane);
     __syncthreads();     // ring slot s, cum and dt, sc free
     fill_slot(n + STAGES);
   }
@@ -540,11 +426,11 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // Sets the kernel's shared-memory limit once per device and caches its
 // blocks per SM for each count of C/B boxes; returns a cudaError_t.
-template <int NBX, bool kTMA, bool kTC>
+template <int NBX, bool kTMA>
 int prepare(int nbn, int& blocks_per_sm) {
   static std::atomic<uint64_t> ready{0};   // bit d: limit set on device d
   static std::atomic<int> occ[MAX_N / BOX + 1];
-  auto kernel = ssd_kernel<NBX, kTMA, kTC>;
+  auto kernel = ssd_kernel<NBX, kTMA>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -588,10 +474,10 @@ CUresult make_map(CUtensorMap* map, const float* ptr, int rank,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int NBX, bool kTMA, bool kTC>
+template <int NBX, bool kTMA>
 int launch(const Args& a, cudaStream_t stream) {
   int per_sm = 0;
-  int err = prepare<NBX, kTMA, kTC>(a.nbn, per_sm);
+  int err = prepare<NBX, kTMA>(a.nbn, per_sm);
   if (err != 0) return err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -614,19 +500,19 @@ int launch(const Args& a, cudaStream_t stream) {
   const int64_t items = static_cast<int64_t>(a.G) * a.H;
   int64_t blocks = static_cast<int64_t>(sms) * per_sm;
   blocks = std::min(blocks, (items + MIN_ITEMS - 1) / MIN_ITEMS);
-  ssd_kernel<NBX, kTMA, kTC>
+  ssd_kernel<NBX, kTMA>
       <<<static_cast<unsigned>(blocks), THREADS,
          smem_bytes(NBX, a.nbn), stream>>>(tx, tc, tb, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kTMA, bool kTC>
+template <bool kTMA>
 int dispatch(const Args& a, cudaStream_t st) {
   switch ((a.P + BOX - 1) / BOX) {
-    case 1: return launch<1, kTMA, kTC>(a, st);
-    case 2: return launch<2, kTMA, kTC>(a, st);
-    case 3: return launch<3, kTMA, kTC>(a, st);
-    case 4: return launch<4, kTMA, kTC>(a, st);
+    case 1: return launch<1, kTMA>(a, st);
+    case 2: return launch<2, kTMA>(a, st);
+    case 3: return launch<3, kTMA>(a, st);
+    case 4: return launch<4, kTMA>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -635,14 +521,20 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+std::atomic<int> last_route{-1};   // 1 TMA, 0 cp.async, -1 no launch yet
+
 }  // namespace
 
-// Whether shapes with this P and N take the TMA route (tensor cores);
-// the others take the cp.async route (FMAs).  Tensors off 16-byte
-// boundaries take the cp.async route too.
+// Whether shapes with this P and N take the TMA route; the others take
+// the cp.async route.  Tensors off 16-byte boundaries take the cp.async
+// route too.
 extern "C" int ssd_intra_chunk_route(int P, int N) {
   return P % 4 == 0 && N % 4 == 0;
 }
+
+// The route of the latest launch in this process, from its shape and
+// its tensors' addresses: 1 TMA, 0 cp.async, -1 before the first.
+extern "C" int ssd_intra_chunk_last_route() { return last_route.load(); }
 
 // Dynamic shared memory of one block for this P and N, in bytes (0
 // outside the shapes the kernel takes).
@@ -664,8 +556,9 @@ extern "C" int ssd_intra_chunk_fwd(const float* x, const float* dt,
   if (G == 0) return 0;
   const Args a{x, dt, cum, Bm, Cm, y, G, L, H, P, N, (N + BOX - 1) / BOX};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ssd_intra_chunk_route(P, N) && aligned16(x) && aligned16(Bm) &&
-      aligned16(Cm) && aligned16(y))
-    return dispatch<true, true>(a, st);
-  return dispatch<false, false>(a, st);
+  const bool tma = ssd_intra_chunk_route(P, N) && aligned16(x) &&
+                   aligned16(Bm) && aligned16(Cm) && aligned16(y);
+  const int err = tma ? dispatch<true>(a, st) : dispatch<false>(a, st);
+  if (err == 0) last_route.store(tma ? 1 : 0);
+  return err;
 }

@@ -7,7 +7,6 @@
 
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #ifndef __CUDACC__
 #define __host__
@@ -103,23 +102,6 @@ __host__ __device__ inline int ring_stage(int n, int stages) {
 }
 __host__ __device__ inline uint32_t ring_phase(int n, int stages) {
   return static_cast<uint32_t>(n / stages) & 1u;
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
-// away from zero, as cvt.rna.tf32.f32 does; the low 13 bits are zero.
-__host__ __device__ inline float tf32_round(float x) {
-  uint32_t u;
-  memcpy(&u, &x, 4);
-  u = (u + 0x1000u) & 0xffffe000u;
-  float r;
-  memcpy(&r, &u, 4);
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|): hi and lo both TF32 values (3xTF32).
-__host__ __device__ inline void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - hi);
 }
 
 }  // namespace ssd

@@ -5,8 +5,9 @@
 launches ``csrc/ssd_intra_chunk.cu``; for CPU tensors it runs the plain
 version ``ref.intra_chunk_ref``.  There is no fallback from one to the
 other.  ``ssd_intra_chunk.launches`` counts the kernel launches;
-``route(P, N)`` names the kernel's route for a shape, ``shared_memory``
-its shared memory a block.
+``route(P, N)`` names the kernel's route for a shape, ``last_route()``
+the route of its latest launch, ``shared_memory`` its shared memory a
+block.
 """
 from __future__ import annotations
 
@@ -63,12 +64,21 @@ def _launch(x, dt, cum, Bm, Cm) -> torch.Tensor:
 
 def route(P: int, N: int) -> str:
     """The kernel's route for head dim P and state N (tensors on 16-byte
-    boundaries, as fresh allocations are): "tma" (TMA loads, f64
-    products on the tensor cores) or "cp.async" (4-byte cp.async loads,
-    f32 FMA products)."""
+    boundaries, as fresh allocations are): "tma" (TMA loads) or
+    "cp.async" (4-byte cp.async loads).  Both run the products in f64 on
+    the tensor cores."""
     fn = _build.function("ssd_intra_chunk", "ssd_intra_chunk_route",
                          [_I, _I])
     return "tma" if fn(P, N) else "cp.async"
+
+
+def last_route() -> str | None:
+    """The route the kernel's latest launch in this process took, from
+    its shape and its tensors' addresses ("tma" or "cp.async"); None
+    before the first launch."""
+    fn = _build.function("ssd_intra_chunk", "ssd_intra_chunk_last_route",
+                         [])
+    return {1: "tma", 0: "cp.async"}.get(fn())
 
 
 def shared_memory(P: int, N: int) -> int:

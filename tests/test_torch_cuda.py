@@ -206,13 +206,41 @@ def test_ssd_kernel_matches_plain(gpu, G, L, H, P, N):
 
 
 def test_ssd_route_follows_the_shape(gpu):
-    """The serving path's shape takes the TMA route (3xTF32 on the tensor
-    cores); shapes whose rows TMA cannot address take the cp.async one."""
+    """The serving path's shape takes the TMA route (TMA loads, f64
+    products on the tensor cores); shapes whose rows TMA cannot address
+    take the cp.async one (the same products)."""
     from repro_torch.kernels.mamba2_scan.ops import route
     assert route(64, 64) == "tma"
     assert route(128, 128) == "tma"
     assert route(50, 70) == "cp.async"
     assert route(64, 70) == "cp.async"
+
+
+def test_ssd_last_route_follows_the_tensors(gpu):
+    """A launch reports the route it took: TMA for the serving shape on
+    fresh tensors, cp.async when x lies off a 16-byte boundary; both
+    within 2e-5 of the plain version."""
+    from repro_torch.kernels.mamba2_scan.ops import last_route, ssd_intra_chunk
+    G, L, H, P, N = 2, 64, 5, 64, 64
+    g = torch.Generator(device=gpu).manual_seed(3)
+    x = torch.randn(G, L, H, P, device=gpu, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g))
+    cum = torch.cumsum(-torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g)), dim=1)
+    Bm, Cm = (torch.randn(G, L, N, device=gpu, generator=g) for _ in "BC")
+    want = ssd_intra_chunk(*(t.cpu() for t in (x, dt, cum, Bm, Cm)))
+    got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    assert last_route() == "tma"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    shifted = torch.empty(x.numel() + 1, device=gpu)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = ssd_intra_chunk(shifted, dt, cum, Bm, Cm)
+    assert last_route() == "cp.async"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_smoke_zamba2_on_gpu_matches_cpu(gpu):
