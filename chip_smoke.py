@@ -26,6 +26,17 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    counted kernel launches, results checked against the conv oracle
    through the simulator and, for every lane, against the plain engine
    on the card;
+4b. the paper's analysis surface on the phase-4 campaign, with counted
+   kernel launches: sweep(reduce=) with TopK("edp", 8) and a
+   (latency, energy) Pareto front, with and without observed_steps, bit
+   for bit against reduce_oracle over phase 4's lanes, none clipped;
+   search_mappings (k=8, keep=2, 2 rounds) over 2 DAGs x the 40 configs
+   x 64 seeded images (40,960 design points a round), its winners held
+   to DAG.evaluate on the card and its front to fold_segments of the
+   unfolded sweep; the estimator, cases (i)-(vi), on the 5 MiBench
+   kernels traced on the card (against the same kernels traced on the
+   host) and the 4 conv traces of phase 4 (case (vi) against their sweep
+   lanes), with the paper's Fig. 2 error table;
 5. the flash-attention kernel against its plain version on the card at
    the serving path's prefill shape (B=1, S=2048, H=32, hd=80, bf16,
    causal) and at f32 hd 16 and 128, a ragged S=1000, causal=False,
@@ -85,6 +96,10 @@ SWEEP_F32_OPS_PER_PE_STEP = 14
 ALU_I32_OPS_PER_ELEMENT = 22
 
 MAIN_MAX_STEPS = 13000
+# the analysis phase: the largest Pareto front it may keep (a clipped
+# front fails the phase), and the mapping search's grid
+PARETO_POINTS = 256
+SEARCH_IMAGES, SEARCH_MAX_STEPS = 64, 256
 
 ARCH = "zamba2-2.7b"
 SERVE_SLOTS, SERVE_CONTEXT, SERVE_REQUESTS, SERVE_GEN = 4, 4096, 8, 32
@@ -148,6 +163,33 @@ def host_ms(fn, reps: int = 200) -> float:
     return elapsed / reps * 1e3
 
 
+def profile_kernels(fn, top: int = 6) -> str:
+    """The ``top`` kernels of one ``fn()`` by device time (torch.profiler),
+    as "name ms xcount" items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if device_us(e) > 0
+            and "cuda" in str(e.device_type).lower()]
+    if not rows:
+        return "the profiler recorded no device time"
+    rows.sort(key=lambda e: -device_us(e))
+    total = sum(device_us(e) for e in rows) / 1e3
+    return f"{total:.4f} ms in {sum(e.count for e in rows)} kernels; " + \
+        "; ".join(f"{e.key[:70]} {device_us(e) / 1e3:.4f} ms x{e.count}"
+                  for e in rows[:top])
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
     """(least ms the card could take, what sets it)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
@@ -196,6 +238,250 @@ def build_report(_build) -> None:
               f"instructions, {sass.count('UTMALDG')} UTMALDG (TMA loads)")
     except (OSError, subprocess.CalledProcessError) as e:
         print(f"[build] flash_attention SASS: cuobjdump unavailable ({e})")
+
+
+def axpy_shift(DAG, n_lanes, shift):
+    """y[j] = (a[j] * w + b[j]) >> shift (examples/map_search.py)."""
+    d = DAG()
+    w = d.load(16)
+    for j in range(n_lanes):
+        m = d.alu("SMUL", d.load(j), w)
+        s = d.alu("SADD", m, d.load(32 + j))
+        d.store(64 + j, d.alu("SRA", s, d.const(shift)))
+    return d
+
+
+def sad_tree(DAG, n):
+    """sum |a[j] - b[j]| via SLT-based abs and an add tree
+    (examples/map_search.py)."""
+    d = DAG()
+    terms = []
+    for j in range(n):
+        a, b = d.load(j), d.load(32 + j)
+        diff = d.alu("SSUB", a, b)
+        neg = d.alu("SSUB", d.const(0), diff)
+        is_neg = d.alu("SLT", diff, d.const(0))
+        keep = d.alu("SMUL", diff, d.alu("LXOR", is_neg, d.const(1)))
+        flip = d.alu("SMUL", neg, is_neg)
+        terms.append(d.alu("SADD", keep, flip))
+    while len(terms) > 1:
+        terms = [d.alu("SADD", terms[i], terms[i + 1])
+                 for i in range(0, len(terms) - 1, 2)] + \
+                (terms[-1:] if len(terms) % 2 else [])
+    d.store(100, terms[0])
+    return d
+
+
+def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
+                   sweep_wall, conv_traces) -> dict:
+    """Phase 4b: reduction, mapping search and the estimator on the
+    phase-4 campaign; returns the launch counts of the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.pareto import (REDUCED_FIELDS, ParetoFront,
+                                             TopK, fold_segments,
+                                             make_device_reducer,
+                                             reduce_oracle, reduced_nbytes)
+    from repro_torch.apps import mibench
+    from repro_torch.core import detailed, dse, estimator, hwconfig
+    from repro_torch.core.cgra import run_program
+    from repro_torch.core.mapper import DAG
+    from repro_torch.kernels.cgra_step.ops import alu_dispatch
+    from repro_torch.kernels.cgra_sweep.ops import sweep_engine
+
+    def same_bits(got, want, what):
+        for f in REDUCED_FIELDS:
+            g, w = getattr(got, f), getattr(want, f)
+            check(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                  f"{what}: field {f} differs")
+
+    G, H, D = len(progs), len(hws), images.shape[0]
+    B = G * H * D
+    alu_dispatch.launches = 0
+    sweep_engine.launches = 0
+
+    # ---- reduction on the device, against the oracle over phase 4 ----
+    fields = [x.cpu().numpy() for x in res]
+    full_bytes = sum(x.numel() * x.element_size() for x in res)
+    prog_idx = np.repeat(np.arange(G), H * D)
+    observed = [int(x) for x in res.steps_executed.view(G, -1).max(1).values]
+    print(f"[reduce] observed steps per program (phase 4): {observed}")
+    specs = (TopK("edp", 8),
+             ParetoFront(("latency_cc", "energy_pj"), PARETO_POINTS))
+    wants = {}
+    for spec in specs:
+        t = time.perf_counter()
+        wants[spec] = reduce_oracle(spec, fields, prog_idx, np.arange(B), G)
+        print(f"[reduce] reduce_oracle({spec}) over phase 4's {B} lanes on "
+              f"the host: {time.perf_counter() - t:.3f} s")
+
+    def timed_sweep(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dse.sweep(programs=progs, profile=prof, hw_configs=hws,
+                        mem_images=images, max_steps=MAIN_MAX_STEPS,
+                        device=dev, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # two rounds, the unreduced sweep first in each, so each wall has a
+    # neighbour of its own kind in the same call
+    walls = {"unreduced": []}
+    for _ in range(2):
+        walls["unreduced"].append(timed_sweep()[1])
+        for spec in specs:
+            for obs in (None, observed):
+                got, wall = timed_sweep(reduce=spec, observed_steps=obs)
+                what = (f"sweep(reduce={spec}, observed_steps="
+                        f"{'observed' if obs else None})")
+                same_bits(got, wants[spec], what)
+                check(int(got.clipped.sum()) == 0,
+                      f"{what}: {got.clipped.tolist()} front points "
+                      f"clipped; raise PARETO_POINTS")
+                walls.setdefault(what, []).append(wall)
+                last = got
+            print(f"[reduce] {spec}: bit-identical to reduce_oracle with "
+                  f"static and observed bucketing; candidates per program "
+                  f"{last.count.tolist()}, clipped {last.clipped.tolist()}; "
+                  f"{reduced_nbytes(G, spec)} bytes shipped against "
+                  f"{full_bytes} for the five (B,) fields")
+    for what, ws in walls.items():
+        print(f"[reduce] wall {what}: {[round(w, 4) for w in ws]} s "
+              f"(phase 4's unreduced {sweep_wall:.4f} s)")
+    gi = torch.as_tensor(prog_idx, dtype=torch.int32, device=dev)
+    lane = torch.arange(B, dtype=torch.int32, device=dev)
+    for spec in specs:
+        red = make_device_reducer(spec, G)
+        ms = cuda_ms(lambda: red(tuple(res), gi, lane), reps=20)
+        dev_ms = device_ms(lambda: red(tuple(res), gi, lane), reps=20)
+        print(f"[reduce] make_device_reducer({spec}) alone on phase 4's "
+              f"{B} lanes: {ms:.4f} ms a call back to back (events), "
+              f"{dev_ms:.4f} ms device time")
+        print(f"[reduce]   device time by kernel, one call: "
+              f"{profile_kernels(lambda: red(tuple(res), gi, lane))}")
+
+    # ---- mapping search over the 40 configs x 64 seeded images -------
+    dags = [axpy_shift(DAG, 6, 2), sad_tree(DAG, 4)]
+    mems = np.random.default_rng(0).integers(
+        -100, 100, (SEARCH_IMAGES, images.shape[1])).astype(np.int32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sr = dse.search_mappings(dags, prof, hws, mems, k=8, keep=2, rounds=2,
+                             seed=0, objective="edp",
+                             names=["axpy_shift", "sad_tree"],
+                             max_steps=SEARCH_MAX_STEPS, device=dev)
+    search_s = time.perf_counter() - t
+    for row in sr.history:
+        n = sum(row["n_candidates"]) * H * SEARCH_IMAGES
+        check(row["n_candidates"] == [8, 8],
+              f"search round {row['round']}: {row['n_candidates']} "
+              f"candidates, expected 8 per kernel")
+        print(f"[search] round {row['round']}: {row['n_candidates']} "
+              f"candidates x {H} configs x {SEARCH_IMAGES} images = {n} "
+              f"design points; best EDP {row['best']}, worst "
+              f"{row['worst']}")
+    for g, dag in enumerate(dags):
+        prog = sr.best[g]
+        final, _ = run_program(prog, mems[0], max_steps=prog.n_instrs + 2,
+                               device=dev)
+        check(np.array_equal(final.mem.cpu().numpy(), dag.evaluate(mems[0])),
+              f"search winner {prog.name} differs from DAG.evaluate")
+    spec = TopK("edp", 2)
+    unfolded = dse.sweep(mappings=sr.mappings, profile=prof, hw_configs=hws,
+                         mem_images=mems, max_steps=SEARCH_MAX_STEPS,
+                         reduce=spec, fold_mappings=False, device=dev)
+    same_bits(fold_segments(spec, unfolded, sr.mappings.kernel_of,
+                            sr.mappings.n_kernels), sr.front,
+              "search front against fold_segments of the unfolded sweep")
+    held = dse.make_bucketed_sweep_fn(
+        list(sr.mappings.programs), prof, hws, mems,
+        max_steps=SEARCH_MAX_STEPS, reduce=TopK("edp", 1), device=dev)
+    held()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    held()
+    round_sweep_s = time.perf_counter() - t
+    print(f"[search] winners {[p.name for p in sr.best]} reproduce "
+          f"DAG.evaluate on the card; the front equals fold_segments of the "
+          f"unfolded sweep; best EDP {sr.best_score.tolist()}; search wall "
+          f"{search_s:.3f} s for {len(sr.history)} rounds "
+          f"({search_s / len(sr.history):.3f} s a round, candidate "
+          f"generation and verification included); one round's held sweep "
+          f"{round_sweep_s:.3f} s")
+
+    # ---- the estimator, cases (i)-(vi): paper Fig. 2 ------------------
+    hw = hwconfig.baseline()
+    errs = {c: [] for c in estimator.CASES}
+    rows = []
+    for k in mibench.all_kernels():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        final, trace = k.run(hw, device=dev)
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t
+        check(k.check(final.mem.cpu().numpy()), f"{k.name}: wrong output")
+        t = time.perf_counter()
+        ests = estimator.estimate_all_cases(k.program, trace, prof, hw)
+        est_s = time.perf_counter() - t
+        host = estimator.estimate_all_cases(
+            k.program, k.run(hw, device="cpu")[1], prof, hw)
+        for c in estimator.CASES:
+            e, w = ests[c], host[c]
+            check(e.latency_cc == w.latency_cc
+                  and np.allclose(e.energy_pj, w.energy_pj, rtol=1e-5,
+                                  atol=0)
+                  and np.allclose(e.power_mw, w.power_mw, rtol=1e-5, atol=0),
+                  f"{k.name} case {c}: the card's trace and the host's "
+                  f"give different estimates")
+        rows.append((k.name, k.program, trace, ests, trace_s, est_s))
+    lane_of = {}
+    h_base = hw_names.index("baseline/smul3/banks4")
+    for g, (case, trace) in enumerate(conv_traces):
+        t = time.perf_counter()
+        ests = estimator.estimate_all_cases(case.program, trace, prof, hw)
+        rows.append((case.name, case.program, trace, ests, None,
+                     time.perf_counter() - t))
+        lane_of[case.name] = (g * H + h_base) * D + 7
+    for name, program, trace, ests, trace_s, est_s in rows:
+        host = type(trace)(*(x.cpu().numpy() for x in trace))
+        rep = detailed.report(program, host, hw.to("cpu"))
+        for c in ("iii", "iv", "v", "vi"):
+            check(ests[c].latency_cc == rep.latency_cc,
+                  f"{name} case {c}: latency {ests[c].latency_cc} != the "
+                  f"detailed model's {rep.latency_cc}")
+        for c in estimator.CASES:
+            errs[c].append(estimator.errors_vs_detailed(ests[c], rep))
+        if name in lane_of:
+            lane = lane_of[name]
+            e_lane = float(res.energy_pj[lane])
+            check(int(res.latency_cc[lane]) == ests["vi"].latency_cc
+                  and abs(ests["vi"].energy_pj - e_lane)
+                  <= 1e-4 * abs(e_lane),
+                  f"{name}: case (vi) differs from its sweep lane")
+        print(f"[estimator] {name}: {int(trace.valid.sum())} steps"
+              + (f", traced on the card in {trace_s:.3f} s" if trace_s
+                 else " (phase 4's trace)")
+              + f"; estimate_all_cases {est_s:.4f} s on the host; case (vi) "
+              f"{ests['vi'].latency_cc} cc, {ests['vi'].energy_pj:.6g} pJ, "
+              f"{ests['vi'].power_mw:.6g} mW")
+    print("[estimator] cases (iii)-(vi) latency equals the detailed model "
+          "on all 9 kernels; MiBench estimates from the card's traces equal "
+          "the host's; conv case (vi) equals its sweep lanes")
+    print("[estimator] Fig. 2, error against the detailed model over "
+          f"{len(rows)} kernels (5 MiBench, 4 conv), baseline hardware:")
+    for c in estimator.CASES:
+        lat = [e["latency_err"] for e in errs[c]]
+        pw = [e["power_err"] for e in errs[c]]
+        print(f"[estimator]   case ({c}): latency mean {np.mean(lat):.4f} "
+              f"max {np.max(lat):.4f}; power mean {np.mean(pw):.4f} max "
+              f"{np.max(pw):.4f}")
+
+    launches = {"alu_dispatch": alu_dispatch.launches,
+                "cgra_sweep": sweep_engine.launches}
+    print(f"[analysis] launches: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"the analysis phase never launched the {name} kernel")
+    return launches
 
 
 def flash_phase(dev) -> dict:
@@ -698,10 +984,12 @@ def main() -> int:
     # sweep lane of the same design point held to the simulator
     h_base = hw_names.index("baseline/smul3/banks4")
     weights = (torch.arange(images.shape[1], device=dev) | 1).long()
+    conv_traces = []
     for g, case in enumerate(mappings):
-        final, _ = run_program(case.program, case.mem_init,
-                               hwconfig.baseline(),
-                               max_steps=MAIN_MAX_STEPS, device=dev)
+        final, trace = run_program(case.program, case.mem_init,
+                                   hwconfig.baseline(),
+                                   max_steps=MAIN_MAX_STEPS, device=dev)
+        conv_traces.append((case, trace))
         check(case.check(final.mem.cpu().numpy()),
               f"{case.name}: wrong convolution output")
         lane = (g * H + h_base) * D + 7
@@ -725,6 +1013,10 @@ def main() -> int:
         print(f"[main] bucket {bi} {[names[g] for g in buckets.groups[bi]]}"
               f" (B={r3[4]}): kernel == plain, energy max rel err "
               f"{r3[1]:.3g}; kernel {r3[2]:.3f} ms, plain {r3[3]:.3f} ms")
+
+    # ---- 4b. reduction, mapping search, estimator --------------------------
+    analysis = analysis_phase(dev, prof_main, progs, hws, hw_names, images,
+                              res, wall, conv_traces)
 
     # ---- 5-8. the language-model kernels and the serving path -------------
     flash_entry = flash_phase(dev)
@@ -751,7 +1043,8 @@ def main() -> int:
          "launches": launches["cgra_sweep"], "max_abs_err": main_err,
          "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": sweep_bound,
          "bound_by": sweep_bound_by, "library_ms": None,
-         "max_rel_err": main_rel, "lanes": B, "lane_steps": lane_steps},
+         "max_rel_err": main_rel, "lanes": B, "lane_steps": lane_steps,
+         "analysis_launches": analysis["cgra_sweep"]},
         {"name": "alu_dispatch", "route": "cuda",
          "source": "src/repro_torch/kernels/cgra_step/csrc/cgra_alu.cu",
          "replaces": "src/repro/kernels/cgra_step/kernel.py:68",
@@ -761,7 +1054,8 @@ def main() -> int:
          "main_path_shape": [1, 16], "main_path_ms": alu_step_ms,
          "main_path_host_ms": alu_host_ms,
          "main_path_device_ms": alu_dev_ms,
-         "main_path_bound_ms": alu_step_bound},
+         "main_path_bound_ms": alu_step_bound,
+         "analysis_launches": analysis["alu_dispatch"]},
         flash_entry, ssd_entry,
     ]
     print(f"[summary] profile on the card {prof_cuda_t:.3f} s; main sweep "

@@ -15,6 +15,17 @@ and each lane fetches its own kernel's rows from the fused row table at
 first split into length buckets (``program.bucket_programs``) so short
 kernels stop running alongside the longest one; results are scattered
 back to the canonical row order and equal the unbucketed sweep.
+
+``sweep(reduce=...)`` reduces each bucket's lanes on the device
+(``analysis.pareto``: top-k or Pareto front per program) and ships only
+the ``(G, K)`` candidate sets to the host; ``sweep(mappings=...)``
+sweeps a mapper's candidate set as the program axis; ``search_mappings``
+closes the loop (sweep candidates, keep the best, mutate, re-sweep).
+
+The reference's ``backend=``, ``interpret=`` (one engine here: the CUDA
+kernel, or its plain version on the CPU), ``autotune=`` (knobs are the
+reference's static defaults) and ``mesh=`` (one device) have no
+counterpart yet.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..analysis import pareto as _pareto
 from ..device import DeviceLike, as_int32, resolve_device
 from ..kernels.cgra_sweep.ops import sweep_engine
 from ..kernels.cgra_sweep.ref import SweepTables, init_lanes
@@ -30,7 +42,7 @@ from .characterization import Profile
 from .hwconfig import HwConfig, stack_configs
 from .memory import (DEFAULT_MAX_BANKS, scoreboard_bound,
                      validate_bank_bound)
-from .program import (Program, ProgramBatch, as_program_batch,
+from .program import (MappingSet, Program, ProgramBatch, as_program_batch,
                       batch_tables, bucket_programs, fused_rows)
 
 Programs = Union[Program, ProgramBatch, Sequence[Program]]
@@ -97,10 +109,26 @@ def _lanes_runner(batch: ProgramBatch, profile: Profile, *, rows: int,
     return run
 
 
+def _with_reduce(fn, reduce: _pareto.Reduction, n_programs: int,
+                 device: torch.device):
+    """``fn(*args, prog_idx) -> SweepResult`` becomes ``fn(*args,
+    prog_idx, lane_idx) -> ReducedResult``, reduced on ``device``."""
+    red = _pareto.make_device_reducer(reduce, n_programs)
+
+    def rfn(*args):
+        *head, prog_idx, lane_idx = args
+        res = fn(*head, prog_idx)
+        return red(tuple(res), as_int32(prog_idx, device),
+                   as_int32(lane_idx, device))
+
+    return rfn
+
+
 def make_sweep_fn(program: Programs, profile: Profile, *, rows: int = 4,
                   cols: int = 4, mem_size: int = 4096, max_steps: int = 2048,
                   chunk_steps: Optional[int] = 64, blk_b: int = 32,
                   max_banks: Optional[int] = None,
+                  reduce: Optional[_pareto.Reduction] = None,
                   device: DeviceLike = None):
     """Build the fused simulate+estimate sweep function.
 
@@ -116,11 +144,22 @@ def make_sweep_fn(program: Programs, profile: Profile, *, rows: int = 4,
 
     max_banks: bank-scoreboard bound (default 16); configs with more
     banks raise, as in the reference.  ``sweep()`` derives it from its
-    configs."""
+    configs.
+
+    reduce: an ``analysis.pareto`` spec (``TopK`` / ``ParetoFront``).
+    Batch API only; the signature becomes ``fn(mem_init, hw, prog_idx,
+    lane_idx) -> ReducedResult`` of ``(G, K)`` tensors on the device,
+    reduced per program where the lanes ran.  ``lane_idx`` carries each
+    lane's flat grid index; ``-1`` marks a lane that must never become a
+    candidate."""
+    if reduce is not None and isinstance(program, Program):
+        raise ValueError("reduce= needs the batch API; pass a sequence "
+                         "of programs or a ProgramBatch")
     dev = resolve_device(device)
     max_banks = max_banks or DEFAULT_MAX_BANKS
-    run = _lanes_runner(as_program_batch(program), profile, rows=rows,
-                        cols=cols, mem_size=mem_size, max_steps=max_steps,
+    batch = as_program_batch(program)
+    run = _lanes_runner(batch, profile, rows=rows, cols=cols,
+                        mem_size=mem_size, max_steps=max_steps,
                         chunk_steps=chunk_steps, blk_b=blk_b, device=dev)
 
     def fn(mem_init, hw: HwConfig, prog_idx=None) -> SweepResult:
@@ -132,6 +171,8 @@ def make_sweep_fn(program: Programs, profile: Profile, *, rows: int = 4,
 
     if isinstance(program, Program):
         return lambda mem_init, hw: fn(mem_init, hw)
+    if reduce is not None:
+        return _with_reduce(fn, reduce, batch.n_programs, dev)
     return lambda mem_init, hw, prog_idx: fn(mem_init, hw, prog_idx)
 
 
@@ -174,10 +215,15 @@ def plan_grid(program: Optional[Programs] = None,
 
 def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
                  mem_size: int = 4096, chunk_steps: Optional[int] = 64,
-                 blk_b: int = 32):
+                 blk_b: int = 32,
+                 reduce: Optional[_pareto.Reduction] = None):
     """``fn(img_idx, hw_slice, prog_idx) -> SweepResult`` for any slice
     of the planned grid; lanes are independent, so a lane's result is the
-    same in any slice.  Runs where the plan's images are."""
+    same in any slice.  Runs where the plan's images are.
+
+    With ``reduce`` the signature gains a trailing ``lane_idx`` (flat grid
+    index per lane, -1 for a padded lane) and the fn returns the slice's
+    ``ReducedResult``, reduced on the device."""
     dev = plan.images.device
     run = _lanes_runner(plan.batch, profile, rows=4, cols=4,
                         mem_size=mem_size, max_steps=max_steps,
@@ -188,7 +234,25 @@ def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
         # the gathered images are a fresh tensor the engine may update
         return run(plan.images[as_int32(idx, dev).long()], hw, gi)
 
+    if reduce is not None:
+        return _with_reduce(grid_fn, reduce, plan.batch.n_programs, dev)
     return grid_fn
+
+
+def _scatter(parts, groups, block: int, n_programs: int,
+             device: torch.device) -> SweepResult:
+    """Per-bucket results back to the canonical row order: rows ``j *
+    block`` of bucket ``bi`` belong to program ``groups[bi][j]``."""
+    out = []
+    for field in zip(*parts):
+        full = torch.empty((n_programs * block,), dtype=field[0].dtype,
+                           device=device)
+        for group, part in zip(groups, field):
+            for j, g in enumerate(group):
+                full[g * block:(g + 1) * block] = \
+                    part[j * block:(j + 1) * block]
+        out.append(full)
+    return SweepResult(*out)
 
 
 def sweep(program: Optional[Programs] = None, profile: Profile = None,
@@ -196,7 +260,12 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
           programs: Optional[Sequence[Program]] = None,
           max_steps: int = 2048, mem_size: int = 4096,
           chunk_steps: Optional[int] = 64, blk_b: int = 32,
-          max_buckets: int = 4, device: DeviceLike = None) -> SweepResult:
+          max_buckets: int = 4,
+          reduce: Optional[_pareto.Reduction] = None,
+          observed_steps: Optional[Sequence[int]] = None,
+          mappings: Optional[MappingSet] = None,
+          fold_mappings: bool = True, device: DeviceLike = None
+          ) -> Union[SweepResult, _pareto.ReducedResult]:
     """Run the full (program x hw x data) grid.
 
     program/programs: a single ``Program``, a sequence of programs, or a
@@ -205,38 +274,266 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
 
     max_buckets > 1 splits a multi-kernel sweep into up to that many
     length buckets, each packed to its own ``t_max`` and run on its own;
-    results are identical to the unbucketed sweep.  Runs on the CUDA
-    device unless ``device`` says otherwise."""
+    results are identical to the unbucketed sweep.  observed_steps:
+    per-program observed ``steps_executed`` maxima from a prior run;
+    when given, the buckets group kernels by trip count instead of
+    static length (``program.bucket_programs``).
+
+    reduce: an ``analysis.pareto`` spec (``TopK(objective, k)`` /
+    ``ParetoFront(axes, max_points)``).  Each bucket's lanes are reduced
+    per program on the device and only the ``(G, K)`` candidate sets
+    reach the host, where they merge (``merge_reduced``).  Returns a
+    host numpy ``ReducedResult`` whose candidates carry their flat grid
+    index ``(g*H + h)*D + d``, bit-identical to ``reduce_oracle`` over
+    the unreduced sweep.
+
+    mappings: a ``program.MappingSet`` -- the K candidate schedules per
+    kernel flatten onto the program axis (B = K_total * H * D).  With
+    ``reduce`` the per-candidate rows fold through the set's kernel map
+    (``analysis.pareto.fold_segments``) into each kernel's best-mapping
+    front; candidate flat indices stay in candidate-lane coordinates, so
+    the winning mapping is ``mappings.mapping_of[idx // (H*D)]``.
+    ``fold_mappings=False`` keeps the per-candidate rows.
+
+    Runs on the CUDA device unless ``device`` says otherwise."""
     dev = resolve_device(device)
+    if mappings is not None:
+        if program is not None or programs is not None:
+            raise TypeError(
+                "sweep: pass mappings= OR program(s)=, not both")
+        res = sweep(programs=list(mappings.programs), profile=profile,
+                    hw_configs=hw_configs, mem_images=mem_images,
+                    max_steps=max_steps, mem_size=mem_size,
+                    chunk_steps=chunk_steps, blk_b=blk_b,
+                    max_buckets=max_buckets, reduce=reduce,
+                    observed_steps=observed_steps, device=dev)
+        if reduce is not None and fold_mappings:
+            return _pareto.fold_segments(reduce, res, mappings.kernel_of,
+                                         mappings.n_kernels)
+        return res
     if programs is not None:
         if program is not None:
             raise TypeError("sweep(): pass either program or programs=, "
                             "not both")
         program = list(programs)
     batch = as_program_batch(program)
-    G = batch.n_programs
-    kw = dict(profile=profile, hw_configs=hw_configs, mem_images=mem_images,
-              max_steps=max_steps, mem_size=mem_size,
-              chunk_steps=chunk_steps, blk_b=blk_b, max_buckets=1,
-              device=dev)
+    images = as_int32(mem_images, dev)
+    G, block = batch.n_programs, len(hw_configs) * images.shape[0]
     if G > 1 and max_buckets > 1:
         buckets = bucket_programs([batch.program(g) for g in range(G)],
-                                  max_buckets)
+                                  max_buckets,
+                                  observed_steps=observed_steps)
         if buckets.n_buckets > 1:
-            parts = [sweep(program=b, **kw) for b in buckets.batches]
-            block = len(hw_configs) * len(mem_images)
-            out = []
-            for field in zip(*parts):
-                full = torch.empty((G * block,), dtype=field[0].dtype,
-                                   device=dev)
-                for group, part in zip(buckets.groups, field):
-                    for j, g in enumerate(group):
-                        full[g * block:(g + 1) * block] = \
-                            part[j * block:(j + 1) * block]
-                out.append(full)
-            return SweepResult(*out)
-    plan = plan_grid(batch, hw_configs, mem_images, device=dev)
-    grid_fn = make_grid_fn(plan, profile,
+            parts = [sweep(program=b, profile=profile,
+                           hw_configs=hw_configs, mem_images=images,
                            max_steps=max_steps, mem_size=mem_size,
-                           chunk_steps=chunk_steps, blk_b=blk_b)
-    return grid_fn(plan.img_idx, plan.hw_grid, plan.prog_idx)
+                           chunk_steps=chunk_steps, blk_b=blk_b,
+                           max_buckets=1, reduce=reduce, device=dev)
+                     for b in buckets.batches]
+            if reduce is None:
+                return _scatter(parts, buckets.groups, block, G, dev)
+            # lift each bucket's rows into the global segment space
+            # (bucket-local program j is canonical program g: shift its
+            # candidates' flat indices by the row-block offset) and merge
+            # the K-sized candidate sets on the host
+            placed = [_pareto.remap_segments(
+                part, group, [(g - j) * block for j, g in enumerate(group)],
+                G) for part, group in zip(parts, buckets.groups)]
+            return _pareto.merge_reduced(reduce, placed)
+    plan = plan_grid(batch, hw_configs, images, device=dev)
+    grid_fn = make_grid_fn(plan, profile, max_steps=max_steps,
+                           mem_size=mem_size, chunk_steps=chunk_steps,
+                           blk_b=blk_b, reduce=reduce)
+    if reduce is None:
+        return grid_fn(plan.img_idx, plan.hw_grid, plan.prog_idx)
+    lane_idx = torch.arange(G * block, dtype=torch.int32, device=dev)
+    return _pareto.merge_reduced(reduce, [grid_fn(
+        plan.img_idx, plan.hw_grid, plan.prog_idx, lane_idx)])
+
+
+def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
+                           hw_configs: Sequence[HwConfig], mem_images, *,
+                           max_steps: int = 2048, mem_size: int = 4096,
+                           chunk_steps: Optional[int] = 64, blk_b: int = 32,
+                           max_buckets: int = 4,
+                           reduce: Optional[_pareto.Reduction] = None,
+                           observed_steps: Optional[Sequence[int]] = None,
+                           device: DeviceLike = None):
+    """Hold a bucketed packed plan: ``fn() -> SweepResult``.
+
+    ``sweep()`` re-packs and re-buckets on every call; a loop that
+    re-executes the same kernel set (a search round, a benchmark) builds
+    the length buckets, their grid fns and the device-resident lane
+    operands once here, and each ``fn()`` runs the buckets and scatters
+    lanes back to canonical ``(g*H + h)*D + d`` order, equal to
+    ``sweep()``.  ``fn.buckets`` exposes the length buckets.
+
+    With ``reduce`` each bucket reduces itself on the device (its lane
+    operands carry canonical flat indices, computed here once) and
+    ``fn() -> ReducedResult`` merges the K-sized per-bucket candidate
+    sets on the host.  ``observed_steps`` buckets by trip count instead
+    of static length (see ``program.bucket_programs``)."""
+    dev = resolve_device(device)
+    batch = as_program_batch(programs)
+    images = as_int32(mem_images, dev)
+    G, block = batch.n_programs, len(hw_configs) * images.shape[0]
+    buckets = bucket_programs([batch.program(g) for g in range(G)],
+                              max_buckets if G > 1 else 1,
+                              observed_steps=observed_steps)
+    bucket_fns = []
+    for group, b in zip(buckets.groups, buckets.batches):
+        plan = plan_grid(b, hw_configs, images, device=dev)
+        args = [as_int32(plan.img_idx, dev), plan.hw_grid,
+                as_int32(plan.prog_idx, dev)]
+        if reduce is not None:
+            args.append(torch.as_tensor(np.concatenate(
+                [np.arange(g * block, (g + 1) * block, dtype=np.int32)
+                 for g in group]), device=dev))
+        bucket_fns.append((make_grid_fn(
+            plan, profile, max_steps=max_steps, mem_size=mem_size,
+            chunk_steps=chunk_steps, blk_b=blk_b, reduce=reduce),
+            tuple(args)))
+
+    if reduce is not None:
+        def fn() -> _pareto.ReducedResult:
+            placed = [_pareto.remap_segments(
+                _pareto._as_numpy(f(*args)), group, np.zeros(len(group)), G)
+                for group, (f, args) in zip(buckets.groups, bucket_fns)]
+            return _pareto.merge_reduced(reduce, placed)
+    else:
+        def fn() -> SweepResult:
+            return _scatter([f(*args) for f, args in bucket_fns],
+                            buckets.groups, block, G, dev)
+
+    fn.buckets = buckets
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Mapping search: the simulator as the inner loop of an optimizer
+# ---------------------------------------------------------------------------
+
+class MappingSearchResult(NamedTuple):
+    """Outcome of ``search_mappings``.
+
+    best / best_policy / best_score: per-kernel winner across every
+    round (score is the search objective at the winner's best (hw,
+    data) lane -- lower is better).  front: the final candidate set
+    reduced per kernel on the device (each kernel's best-mapping front).
+    mappings: the final-round ``MappingSet`` (front rows index into
+    it).  history: one dict per round with per-kernel best/worst scores
+    and the candidate counts actually scored.
+    """
+    best: list
+    best_policy: list
+    best_score: np.ndarray
+    front: _pareto.ReducedResult
+    mappings: MappingSet
+    history: list
+
+
+def _candidate_scores(objective: str,
+                      red: _pareto.ReducedResult) -> np.ndarray:
+    """(n_rows,) objective value of each row's best lane (top-1 rows)."""
+    fields = [np.asarray(getattr(red, f))[:, 0]
+              for f in _pareto.RESULT_FIELDS]
+    vals = _pareto.objective_values(objective, fields)
+    return np.where(np.asarray(red.count) > 0, vals, np.inf)
+
+
+def search_mappings(dags: Sequence, profile: Profile,
+                    hw_configs: Sequence[HwConfig], mem_images, *,
+                    k: int = 8, keep: int = 2, rounds: int = 2,
+                    seed: int = 0, objective: str = "edp",
+                    names: Optional[Sequence[str]] = None,
+                    rows: int = 4, cols: int = 4,
+                    max_steps: int = 2048, mem_size: int = 4096,
+                    chunk_steps: Optional[int] = 64, blk_b: int = 32,
+                    max_buckets: int = 4,
+                    reduce: Optional[_pareto.Reduction] = None,
+                    device: DeviceLike = None) -> MappingSearchResult:
+    """Greedy mapping refinement: sweep K candidates -> keep top-M ->
+    mutate -> re-sweep.
+
+    Per round, every kernel's candidate set (``mapper.generate_
+    candidates``: survivors' policies first, then seeded mutations of
+    them, then fresh shuffled policies; all deduped and verified against
+    ``DAG.evaluate`` on ``device``) is flattened into one ``MappingSet``
+    and scored against the full (hw x data) grid by one held bucketed
+    plan (``make_bucketed_sweep_fn`` with an on-device top-1 reduction
+    per candidate): K·H·D design points per round.  The per-kernel
+    ``keep`` best (by ``objective`` at each candidate's best lane)
+    survive to seed the next round; the best candidate ever seen is
+    tracked across rounds.
+
+    Returns a :class:`MappingSearchResult`; ``front`` reduces the final
+    candidate set per kernel on the device with ``reduce`` (default
+    ``TopK(objective, keep)``), what ``sweep(mappings=...)`` ships back.
+    """
+    from .mapper import generate_candidates, mutate_policy
+
+    if keep < 1 or k < keep:
+        raise ValueError(f"need 1 <= keep <= k, got keep={keep} k={k}")
+    names = (list(names) if names is not None
+             else [f"kernel{g}" for g in range(len(dags))])
+    if len(names) != len(dags):
+        raise ValueError(f"{len(names)} names for {len(dags)} DAGs")
+    dev = resolve_device(device)
+    n_kernels = len(dags)
+    top1 = _pareto.TopK(objective, k=1)
+    knobs = dict(max_steps=max_steps, mem_size=mem_size,
+                 chunk_steps=chunk_steps, blk_b=blk_b,
+                 max_buckets=max_buckets, device=dev)
+
+    survivors = [None] * n_kernels      # per kernel: list[MappingCandidate]
+    best = [None] * n_kernels           # per kernel: (score, candidate)
+    history = []
+    mset = None
+    for r in range(rounds):
+        groups = []
+        for g, dag in enumerate(dags):
+            if r == 0:
+                cands = generate_candidates(dag, k, seed=seed + 7 * g,
+                                            rows=rows, cols=cols,
+                                            name=names[g], device=dev)
+            else:
+                rng = np.random.default_rng(
+                    (seed + 1) * 9176 + 131 * r + g)
+                pols = [c.policy for c in survivors[g]]
+                while len(pols) < 3 * k:
+                    parent = survivors[g][
+                        int(rng.integers(0, len(survivors[g])))]
+                    pols.append(mutate_policy(parent.policy, rng))
+                cands = generate_candidates(dag, k, seed=seed,
+                                            rows=rows, cols=cols,
+                                            name=names[g], policies=pols,
+                                            device=dev)
+            groups.append(cands)
+        mset = MappingSet.from_candidates(
+            [[c.program for c in grp] for grp in groups], names=names)
+        plan_fn = make_bucketed_sweep_fn(
+            list(mset.programs), profile, hw_configs, mem_images,
+            reduce=top1, **knobs)
+        scores = _candidate_scores(objective, plan_fn())
+        row = {"round": r, "n_candidates": [len(g) for g in groups],
+               "best": [], "worst": []}
+        offset = 0
+        for g, grp in enumerate(groups):
+            s = scores[offset:offset + len(grp)]
+            offset += len(grp)
+            order = np.argsort(s, kind="stable")
+            survivors[g] = [grp[i] for i in order[:keep]]
+            row["best"].append(float(s[order[0]]))
+            row["worst"].append(float(s[order[-1]]))
+            if best[g] is None or float(s[order[0]]) < best[g][0]:
+                best[g] = (float(s[order[0]]), grp[order[0]])
+        history.append(row)
+
+    front = sweep(mappings=mset, profile=profile, hw_configs=hw_configs,
+                  mem_images=mem_images,
+                  reduce=reduce or _pareto.TopK(objective, k=keep), **knobs)
+    return MappingSearchResult(
+        best=[b[1].program for b in best],
+        best_policy=[b[1].policy for b in best],
+        best_score=np.asarray([b[0] for b in best], np.float64),
+        front=front, mappings=mset, history=history)

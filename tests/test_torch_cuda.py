@@ -106,6 +106,69 @@ def test_sweep_rejects_a_block_the_kernel_cannot_launch(gpu, prof):
                   device=gpu)
 
 
+def _assert_reduced_close(got, want):
+    """Candidates and integers bit for bit, energy and power at 1e-5."""
+    from repro_torch.analysis.pareto import REDUCED_FIELDS
+    for f in REDUCED_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype == np.float32:
+            np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=f)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+@pytest.mark.parametrize("max_buckets", [1, 4])
+def test_reduced_sweep_on_gpu_equals_host(gpu, prof, max_buckets):
+    from repro_torch.analysis import pareto
+    progs, hws, images = _grid()
+    kw = dict(programs=progs, profile=prof, hw_configs=hws,
+              mem_images=images, max_steps=2048, max_buckets=max_buckets)
+    for spec in (pareto.TopK("edp", 4),
+                 pareto.ParetoFront(("latency_cc", "energy_pj"), 16)):
+        before = sweep_engine.launches
+        got = dse.sweep(device=gpu, reduce=spec, **kw)
+        assert sweep_engine.launches > before
+        _assert_reduced_close(got, dse.sweep(device="cpu", reduce=spec,
+                                             **kw))
+        # on the card: bit for bit the oracle over the card's own lanes
+        full = dse.sweep(device=gpu, **kw)
+        G, B = len(progs), full.latency_cc.shape[0]
+        want = pareto.reduce_oracle(spec, [t.cpu().numpy() for t in full],
+                                    np.repeat(np.arange(G), B // G),
+                                    np.arange(B), G)
+        for f in pareto.REDUCED_FIELDS:
+            assert getattr(got, f).tobytes() == getattr(want, f).tobytes(), f
+
+
+def test_search_mappings_on_gpu_equals_host(gpu, prof):
+    from repro_torch.core.mapper import DAG, _program_key
+    d = DAG()
+    w = d.const(5)
+    for j in range(6):
+        t = d.alu("SADD", d.alu("SMUL", d.load(j), w), d.load(16 + j))
+        d.store(32 + j, d.alu("SRA", t, d.const(2)))
+    mems = np.random.default_rng(0).integers(-100, 100, (4, 128)).astype(
+        np.int32)
+    kw = dict(k=4, keep=2, rounds=2, max_steps=128, mem_size=128)
+    before = (sweep_engine.launches, alu_dispatch.launches)
+    got = dse.search_mappings([d], prof, [hwconfig.TOPOLOGIES[t]()
+                                          for t in TOPOS], mems,
+                              device=gpu, **kw)
+    assert sweep_engine.launches > before[0]
+    assert alu_dispatch.launches > before[1]    # candidate verification
+    want = dse.search_mappings([d], prof, [hwconfig.TOPOLOGIES[t]()
+                                           for t in TOPOS], mems,
+                               device="cpu", **kw)
+    assert [_program_key(p) for p in got.mappings.programs] == \
+        [_program_key(p) for p in want.mappings.programs]
+    assert _program_key(got.best[0]) == _program_key(want.best[0])
+    for g_row, w_row in zip(got.history, want.history):
+        np.testing.assert_allclose(g_row["best"], w_row["best"], rtol=1e-5)
+        np.testing.assert_allclose(g_row["worst"], w_row["worst"],
+                                   rtol=1e-5)
+    _assert_reduced_close(got.front, want.front)
+
+
 # ---- the language-model kernels ---------------------------------------
 
 def _attn_inputs(gpu, B, S, T, H, KV, hd, dtype, seed=0):

@@ -27,7 +27,8 @@ from repro_torch.core import hwconfig, program  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
-          "core/trace.py", "core/detailed.py", "apps/__init__.py",
+          "core/trace.py", "core/detailed.py", "core/bitstream.py",
+          "apps/__init__.py",
           "apps/common.py", "apps/mibench.py", "apps/conv.py",
           "models/config.py", "configs/zamba2_2_7b.py"]
 
