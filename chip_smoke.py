@@ -27,13 +27,15 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    through the simulator and, for every lane, against the plain engine
    on the card;
 4b. the paper's analysis surface on the phase-4 campaign, with counted
-   kernel launches: sweep(reduce=) with TopK("edp", 8) and a
-   (latency, energy) Pareto front, with and without observed_steps, bit
-   for bit against reduce_oracle over phase 4's lanes, none clipped;
+   kernel launches: sweep(reduce=) with TopK("edp", 8), a
+   (latency, energy) and a (latency, power) Pareto front, with and
+   without observed_steps, bit for bit against reduce_oracle over phase
+   4's lanes, none clipped, with each front's distinct points;
    search_mappings (k=8, keep=2, 2 rounds) over 2 DAGs x the 40 configs
    x 64 seeded images (40,960 design points a round), its winners held
-   to DAG.evaluate on the card and its front to fold_segments of the
-   unfolded sweep; the estimator, cases (i)-(vi), on the 5 MiBench
+   to DAG.evaluate on the card, its front to fold_segments of the
+   unfolded sweep and to reduce_oracle over the last round's lanes run
+   by the plain engine (held to the kernel as in phase 3); the estimator, cases (i)-(vi), on the 5 MiBench
    kernels traced on the card (against the same kernels traced on the
    host) and the 4 conv traces of phase 4 (case (vi) against their sweep
    lanes), with the paper's Fig. 2 error table;
@@ -273,9 +275,14 @@ def sad_tree(DAG, n):
 
 
 def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
-                   sweep_wall, conv_traces) -> dict:
+                   sweep_wall, conv_traces, compare_lanes) -> dict:
     """Phase 4b: reduction, mapping search and the estimator on the
-    phase-4 campaign; returns the launch counts of the phase."""
+    phase-4 campaign; returns the launch counts of the phase.
+
+    compare_lanes(programs, images, max_steps, what): phase 3's check of
+    the sweep kernel against its plain version on the grid of those
+    programs x the phase's configs x those images; returns the plain
+    version's lane state last.  Its launches do not count."""
     import numpy as np
     import torch
     from repro_torch.analysis.pareto import (REDUCED_FIELDS, ParetoFront,
@@ -300,14 +307,26 @@ def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
     alu_dispatch.launches = 0
     sweep_engine.launches = 0
 
+    def distinct_points(spec, red):
+        """Distinct (axis 0, axis 1) pairs of each program's front."""
+        a0, a1 = (getattr(red, f) for f in spec.axes)
+        return [len(set(zip(a0[g, :n].tolist(), a1[g, :n].tolist())))
+                for g, n in enumerate(red.count.tolist())]
+
     # ---- reduction on the device, against the oracle over phase 4 ----
     fields = [x.cpu().numpy() for x in res]
     full_bytes = sum(x.numel() * x.element_size() for x in res)
     prog_idx = np.repeat(np.arange(G), H * D)
     observed = [int(x) for x in res.steps_executed.view(G, -1).max(1).values]
     print(f"[reduce] observed steps per program (phase 4): {observed}")
+    # latency here depends on the config alone, and the config best on
+    # latency is best on energy, so each (latency, energy) front is one
+    # point held by every layer (ties kept by the flat-index rule); the
+    # (latency, power) front trades the two across configs.  H * D, a
+    # program's every lane, is the most it can hold
     specs = (TopK("edp", 8),
-             ParetoFront(("latency_cc", "energy_pj"), PARETO_POINTS))
+             ParetoFront(("latency_cc", "energy_pj"), PARETO_POINTS),
+             ParetoFront(("latency_cc", "power_mw"), H * D))
     wants = {}
     for spec in specs:
         t = time.perf_counter()
@@ -340,11 +359,13 @@ def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
                       f"clipped; raise PARETO_POINTS")
                 walls.setdefault(what, []).append(wall)
                 last = got
+            distinct = (f", distinct points {distinct_points(spec, last)}"
+                        if isinstance(spec, ParetoFront) else "")
             print(f"[reduce] {spec}: bit-identical to reduce_oracle with "
                   f"static and observed bucketing; candidates per program "
-                  f"{last.count.tolist()}, clipped {last.clipped.tolist()}; "
-                  f"{reduced_nbytes(G, spec)} bytes shipped against "
-                  f"{full_bytes} for the five (B,) fields")
+                  f"{last.count.tolist()}{distinct}, clipped "
+                  f"{last.clipped.tolist()}; {reduced_nbytes(G, spec)} bytes "
+                  f"shipped against {full_bytes} for the five (B,) fields")
     for what, ws in walls.items():
         print(f"[reduce] wall {what}: {[round(w, 4) for w in ws]} s "
               f"(phase 4's unreduced {sweep_wall:.4f} s)")
@@ -393,6 +414,25 @@ def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
     same_bits(fold_segments(spec, unfolded, sr.mappings.kernel_of,
                             sr.mappings.n_kernels), sr.front,
               "search front against fold_segments of the unfolded sweep")
+    # the last round's candidate lanes through the sweep kernel and its
+    # plain version, and the front against the oracle over the plain
+    # version's lanes, segmented by kernel
+    n_sweep = sweep_engine.launches
+    r = compare_lanes(list(sr.mappings.programs), mems, SEARCH_MAX_STEPS,
+                      "search candidates")
+    sweep_engine.launches = n_sweep
+    plain = [x.cpu().numpy() for x in dse.lane_results(r[-1], prof)]
+    n_lanes = plain[0].shape[0]
+    kernel_seg = np.repeat(np.asarray(sr.mappings.kernel_of),
+                           n_lanes // len(sr.mappings.kernel_of))
+    same_bits(sr.front, reduce_oracle(spec, plain, kernel_seg,
+                                      np.arange(n_lanes),
+                                      sr.mappings.n_kernels),
+              "search front against reduce_oracle over the plain engine")
+    print(f"[search] the last round's {n_lanes} candidate lanes: kernel == "
+          f"plain, energy max rel err {r[1]:.3g} (kernel {r[2]:.3f} ms, plain"
+          f" {r[3]:.3f} ms); the front equals reduce_oracle over the plain "
+          f"version's lanes")
     held = dse.make_bucketed_sweep_fn(
         list(sr.mappings.programs), prof, hws, mems,
         max_steps=SEARCH_MAX_STEPS, reduce=TopK("edp", 1), device=dev)
@@ -868,7 +908,7 @@ def main() -> int:
     def compare_engines(inputs, max_steps, what, t_clk):
         """Kernel and plain version on the same inputs; returns (max abs
         energy error in pJ, max relative energy error, kernel ms, plain
-        ms, lanes, executed lane-steps)."""
+        ms, lanes, executed lane-steps, the plain version's state)."""
         tables, hw, gidx, mem = inputs
         states, times = [], []
         for run in (sweep_engine, sweep_ref):
@@ -887,7 +927,7 @@ def main() -> int:
         check(rel <= 1e-5, f"{what}: energy rel err {rel:.3g} > 1e-5")
         abs_pj = float((e_k - e_p).abs().max()) * t_clk * 1e-3
         return (abs_pj, rel, times[0], times[1], mem.shape[0],
-                int(kern.n_exec.sum()))
+                int(kern.n_exec.sum()), plain)
 
     prof_cuda_t = time.perf_counter()
     prof = characterize(device=dev)
@@ -1015,8 +1055,12 @@ def main() -> int:
               f"{r3[1]:.3g}; kernel {r3[2]:.3f} ms, plain {r3[3]:.3f} ms")
 
     # ---- 4b. reduction, mapping search, estimator --------------------------
+    def compare_lanes(batch, imgs, max_steps, what):
+        return compare_engines(engine_inputs(batch, prof_main, hws, imgs),
+                               max_steps, what, prof_main.t_clk_ns)
+
     analysis = analysis_phase(dev, prof_main, progs, hws, hw_names, images,
-                              res, wall, conv_traces)
+                              res, wall, conv_traces, compare_lanes)
 
     # ---- 5-8. the language-model kernels and the serving path -------------
     flash_entry = flash_phase(dev)

@@ -37,7 +37,7 @@ import torch
 from ..analysis import pareto as _pareto
 from ..device import DeviceLike, as_int32, resolve_device
 from ..kernels.cgra_sweep.ops import sweep_engine
-from ..kernels.cgra_sweep.ref import SweepTables, init_lanes
+from ..kernels.cgra_sweep.ref import LaneState, SweepTables, init_lanes
 from .characterization import Profile
 from .hwconfig import HwConfig, stack_configs
 from .memory import (DEFAULT_MAX_BANKS, scoreboard_bound,
@@ -69,6 +69,23 @@ def sweep_tables(batch: ProgramBatch, profile: Profile,
         mulzero=float(profile.mulzero))
 
 
+def lane_results(st: LaneState, profile: Profile) -> SweepResult:
+    """The five (B,) result fields of finished lanes (the engine's or
+    its plain version's state)."""
+    # the clock period comes from the characterization profile, as in
+    # the reference (hw.t_clk_ns is not consulted)
+    t_clk = float(np.float32(profile.t_clk_ns))
+    lat = st.t_cc
+    weights = torch.arange(st.mem.shape[1], dtype=torch.int64,
+                           device=st.mem.device) | 1
+    # int32 wraparound of the reference's sum, made explicit
+    checksum = ((st.mem.to(torch.int64) * weights).sum(1)
+                & 0xFFFFFFFF).to(torch.int32)
+    return SweepResult(lat, st.e_acc * t_clk * 1e-3,
+                       st.e_acc / lat.clamp(min=1) * 1e-3, checksum,
+                       st.n_exec)
+
+
 def _lanes_runner(batch: ProgramBatch, profile: Profile, *, rows: int,
                   cols: int, mem_size: int, max_steps: int,
                   chunk_steps: Optional[int], blk_b: int,
@@ -82,9 +99,6 @@ def _lanes_runner(batch: ProgramBatch, profile: Profile, *, rows: int,
             f"program batch {batch.names!r}: n_pes={batch.n_pes} does not "
             f"match the {rows}x{cols} array")
     tables = sweep_tables(batch, profile, device)
-    # the clock period comes from the characterization profile, as in
-    # the reference (hw.t_clk_ns is not consulted)
-    t_clk = float(np.float32(profile.t_clk_ns))
 
     def run(mem: torch.Tensor, hw: HwConfig, prog_idx) -> SweepResult:
         if mem.dim() != 2 or mem.shape[1] != mem_size:
@@ -96,15 +110,7 @@ def _lanes_runner(batch: ProgramBatch, profile: Profile, *, rows: int,
         sweep_engine(tables, hw, as_int32(prog_idx, device), st, rows=rows,
                      cols=cols, max_steps=max_steps, chunk_steps=chunk_steps,
                      blk_b=blk_b)
-        lat = st.t_cc
-        weights = torch.arange(mem_size, dtype=torch.int64,
-                               device=device) | 1
-        # int32 wraparound of the reference's sum, made explicit
-        checksum = ((st.mem.to(torch.int64) * weights).sum(1)
-                    & 0xFFFFFFFF).to(torch.int32)
-        return SweepResult(lat, st.e_acc * t_clk * 1e-3,
-                           st.e_acc / lat.clamp(min=1) * 1e-3, checksum,
-                           st.n_exec)
+        return lane_results(st, profile)
 
     return run
 
@@ -243,6 +249,8 @@ def _scatter(parts, groups, block: int, n_programs: int,
              device: torch.device) -> SweepResult:
     """Per-bucket results back to the canonical row order: rows ``j *
     block`` of bucket ``bi`` belong to program ``groups[bi][j]``."""
+    if len(parts) == 1:         # one bucket holds every program in order
+        return parts[0]
     out = []
     for field in zip(*parts):
         full = torch.empty((n_programs * block,), dtype=field[0].dtype,
@@ -277,7 +285,8 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
     results are identical to the unbucketed sweep.  observed_steps:
     per-program observed ``steps_executed`` maxima from a prior run;
     when given, the buckets group kernels by trip count instead of
-    static length (``program.bucket_programs``).
+    static length (``program.bucket_programs``).  One call of a
+    ``make_bucketed_sweep_fn`` plan.
 
     reduce: an ``analysis.pareto`` spec (``TopK(objective, k)`` /
     ``ParetoFront(axes, max_points)``).  Each bucket's lanes are reduced
@@ -296,59 +305,25 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
     ``fold_mappings=False`` keeps the per-candidate rows.
 
     Runs on the CUDA device unless ``device`` says otherwise."""
-    dev = resolve_device(device)
     if mappings is not None:
         if program is not None or programs is not None:
             raise TypeError(
                 "sweep: pass mappings= OR program(s)=, not both")
-        res = sweep(programs=list(mappings.programs), profile=profile,
-                    hw_configs=hw_configs, mem_images=mem_images,
-                    max_steps=max_steps, mem_size=mem_size,
-                    chunk_steps=chunk_steps, blk_b=blk_b,
-                    max_buckets=max_buckets, reduce=reduce,
-                    observed_steps=observed_steps, device=dev)
-        if reduce is not None and fold_mappings:
-            return _pareto.fold_segments(reduce, res, mappings.kernel_of,
-                                         mappings.n_kernels)
-        return res
-    if programs is not None:
+        program = list(mappings.programs)
+    elif programs is not None:
         if program is not None:
             raise TypeError("sweep(): pass either program or programs=, "
                             "not both")
         program = list(programs)
-    batch = as_program_batch(program)
-    images = as_int32(mem_images, dev)
-    G, block = batch.n_programs, len(hw_configs) * images.shape[0]
-    if G > 1 and max_buckets > 1:
-        buckets = bucket_programs([batch.program(g) for g in range(G)],
-                                  max_buckets,
-                                  observed_steps=observed_steps)
-        if buckets.n_buckets > 1:
-            parts = [sweep(program=b, profile=profile,
-                           hw_configs=hw_configs, mem_images=images,
-                           max_steps=max_steps, mem_size=mem_size,
-                           chunk_steps=chunk_steps, blk_b=blk_b,
-                           max_buckets=1, reduce=reduce, device=dev)
-                     for b in buckets.batches]
-            if reduce is None:
-                return _scatter(parts, buckets.groups, block, G, dev)
-            # lift each bucket's rows into the global segment space
-            # (bucket-local program j is canonical program g: shift its
-            # candidates' flat indices by the row-block offset) and merge
-            # the K-sized candidate sets on the host
-            placed = [_pareto.remap_segments(
-                part, group, [(g - j) * block for j, g in enumerate(group)],
-                G) for part, group in zip(parts, buckets.groups)]
-            return _pareto.merge_reduced(reduce, placed)
-    plan = plan_grid(batch, hw_configs, images, device=dev)
-    grid_fn = make_grid_fn(plan, profile, max_steps=max_steps,
-                           mem_size=mem_size, chunk_steps=chunk_steps,
-                           blk_b=blk_b, reduce=reduce)
-    if reduce is None:
-        return grid_fn(plan.img_idx, plan.hw_grid, plan.prog_idx)
-    lane_idx = torch.arange(G * block, dtype=torch.int32, device=dev)
-    return _pareto.merge_reduced(reduce, [grid_fn(
-        plan.img_idx, plan.hw_grid, plan.prog_idx, lane_idx)])
+    res = make_bucketed_sweep_fn(
+        program, profile, hw_configs, mem_images, max_steps=max_steps,
+        mem_size=mem_size, chunk_steps=chunk_steps, blk_b=blk_b,
+        max_buckets=max_buckets, reduce=reduce,
+        observed_steps=observed_steps, device=device)()
+    if mappings is not None and reduce is not None and fold_mappings:
+        return _pareto.fold_segments(reduce, res, mappings.kernel_of,
+                                     mappings.n_kernels)
+    return res
 
 
 def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
@@ -361,12 +336,12 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                            device: DeviceLike = None):
     """Hold a bucketed packed plan: ``fn() -> SweepResult``.
 
-    ``sweep()`` re-packs and re-buckets on every call; a loop that
-    re-executes the same kernel set (a search round, a benchmark) builds
-    the length buckets, their grid fns and the device-resident lane
-    operands once here, and each ``fn()`` runs the buckets and scatters
-    lanes back to canonical ``(g*H + h)*D + d`` order, equal to
-    ``sweep()``.  ``fn.buckets`` exposes the length buckets.
+    A loop that re-executes the same kernel set (a search round, a
+    benchmark) builds the length buckets, their grid fns and the
+    device-resident lane operands once here; each ``fn()`` runs the
+    buckets and scatters lanes back to canonical ``(g*H + h)*D + d``
+    order, as ``sweep()`` (one call of such a plan) returns them.
+    ``fn.buckets`` exposes the length buckets.
 
     With ``reduce`` each bucket reduces itself on the device (its lane
     operands carry canonical flat indices, computed here once) and
