@@ -39,6 +39,21 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    kernels traced on the card (against the same kernels traced on the
    host) and the 4 conv traces of phase 4 (case (vi) against their sweep
    lanes), with the paper's Fig. 2 error table;
+4c. the crash-safe sweep service on the phase-4 campaign, with counted
+   kernel launches, every answer bit for bit phase 4's lanes (or
+   reduce_oracle over them): a ResumableSweepRunner of 10 units of 4096
+   lanes stopped after 4 and resumed by a second runner; a TopK("edp",
+   8) runner; a persistent fault on the stage "cuda" raising
+   SweepUnitError; `python -m repro_torch.service` killed by SIGKILL at
+   unit 2 and resumed (2 units resumed, its .npz equal to an
+   uninterrupted run's); a SweepTransport over a SweepService (2 slots,
+   units of 2,560 lanes) answering 4 requests (one conv mapping x the 40
+   configs x the first 64 layers, one of them TopK("edp", 8)) through
+   SweepClient, a replayed key, a drain once the first campaign is
+   complete and a new transport on the same port and checkpoint root,
+   then each request alone, and again on a third transport, where every
+   unit resumes; tune_sweep over the campaign (27 candidates, each
+   one's ms) into a temporary cache, then an AUTO sweep from the cache;
 5. the flash-attention kernel against its plain version on the card at
    the serving path's prefill shape (B=1, S=2048, H=32, hd=80, bf16,
    causal) and at f32 hd 16 and 128, a ragged S=1000, causal=False,
@@ -68,8 +83,10 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -102,6 +119,9 @@ MAIN_MAX_STEPS = 13000
 # front fails the phase), and the mapping search's grid
 PARETO_POINTS = 256
 SEARCH_IMAGES, SEARCH_MAX_STEPS = 64, 256
+# the service phase: runner units of 4096 lanes (10 for the campaign);
+# HTTP requests of one mapping x the 40 configs x the first 64 layers
+SERVICE_UNIT, SERVICE_LAYERS = 4096, 64
 
 ARCH = "zamba2-2.7b"
 SERVE_SLOTS, SERVE_CONTEXT, SERVE_REQUESTS, SERVE_GEN = 4, 4096, 8, 32
@@ -524,6 +544,324 @@ def analysis_phase(dev, prof, progs, hws, hw_names, images, res,
     return launches
 
 
+def _file_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def service_phase(dev, prof, progs, hws, images, res, sweep_wall,
+                  work: Path) -> dict:
+    """Phase 4c: the crash-safe sweep service on the phase-4 campaign;
+    every answer is held to phase 4's lanes bit for bit (or to the
+    oracle over them).  Returns the phase's sweep launches and times.
+
+    ``work`` is an empty directory for checkpoints and outputs."""
+    import os
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.analysis.pareto import REDUCED_FIELDS, TopK, \
+        reduce_oracle
+    from repro_torch.core import dse
+    from repro_torch.core.autotune import tune_sweep
+    from repro_torch.core.characterization import default_profile
+    from repro_torch.kernels.cgra_sweep.ops import sweep_engine
+    from repro_torch.runtime.faults import (FAULT_PLAN_ENV, FaultInjector,
+                                            FaultPlan)
+    from repro_torch.service import (ClientRetry, ResumableSweepRunner,
+                                     SweepClient, SweepService,
+                                     SweepTransport, SweepUnitError)
+    from repro_torch.service.transport import sweep_to_wire
+
+    G, H, D = len(progs), len(hws), images.shape[0]
+    B = G * H * D
+    want = [x.cpu() for x in res]
+    fields = [x.numpy() for x in want]
+
+    def equal_lanes(got, what, rows=None):
+        for f, w in zip(dse.SweepResult._fields, want):
+            g = torch.as_tensor(got[f] if isinstance(got, dict)
+                                else getattr(got, f)).cpu()
+            w = w if rows is None else w[rows]
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{what}: {f} differs from phase 4")
+
+    def equal_reduced(got, oracle, what):
+        for f in REDUCED_FIELDS:
+            g = np.asarray(got[f] if isinstance(got, dict)
+                           else getattr(got, f))
+            w = getattr(oracle, f)
+            check(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                  f"{what}: {f} differs from the oracle")
+
+    sweep_engine.launches = 0
+    t_phase = time.perf_counter()
+
+    # ---- the runner, stopped after 4 units and resumed ------------------
+    plan = dse.plan_grid(programs=progs, hw_configs=hws, mem_images=images,
+                         device=dev)
+    kw = dict(plan=plan, profile=prof, max_steps=MAIN_MAX_STEPS,
+              unit_size=SERVICE_UNIT)
+    ck = work / "runner"
+    t = time.perf_counter()
+    first = ResumableSweepRunner(ckpt_dir=str(ck), **kw)
+    check(first.n_units == 10 and first.stage.name == "cuda",
+          f"runner: {first.n_units} units on {first.stage.name}")
+    for k in first.pending_units()[:4]:
+        first.run_unit(k)
+    first.mgr.wait()
+    wall_a = time.perf_counter() - t
+    t = time.perf_counter()
+    second = ResumableSweepRunner(ckpt_dir=str(ck), **kw)
+    out, rep = second.run()
+    wall_b = time.perf_counter() - t
+    check(rep.units_resumed == 4 and rep.units_run == 6,
+          f"runner resumed {rep.units_resumed}, ran {rep.units_run}")
+    equal_lanes(out, "resumed runner")
+    unit_s = [r.seconds for r in first.report.records + rep.records
+              if not r.resumed]
+    ck_bytes = _file_bytes(ck)
+    print(f"[service] runner: 10 units of {SERVICE_UNIT} lanes, 4 run, "
+          f"then 4 resumed + 6 run by a second runner: equal to phase 4 "
+          f"in all five fields")
+    print(f"[service] runner wall {wall_a:.4f} + {wall_b:.4f} s "
+          f"(fingerprints included) against phase 4's dse.sweep "
+          f"{sweep_wall:.4f} s; units {sum(unit_s):.4f} s in all, "
+          f"{min(unit_s):.4f}-{max(unit_s):.4f} s a unit")
+    print(f"[service] fingerprint {first.fingerprint_s:.4f} / "
+          f"{second.fingerprint_s:.4f} s (hashes "
+          f"{plan.images.numel() * 4 / 1e6:.0f} MB of images on the host); "
+          f"checkpoints {ck_bytes} bytes, {ck_bytes / 10:.0f} a unit")
+
+    spec = TopK("edp", 8)
+    prog_idx = np.repeat(np.arange(G), H * D)
+    oracle = reduce_oracle(spec, fields, prog_idx, np.arange(B), G)
+    red, _ = ResumableSweepRunner(reduce=spec, **kw).run()
+    equal_reduced(red, oracle, "TopK runner")
+    broken = ResumableSweepRunner(injector=FaultInjector(
+        FaultPlan(broken_backends=("cuda",))), **kw)
+    try:
+        broken.run_unit(0)
+        fail("a persistent fault on stage cuda did not raise")
+    except SweepUnitError as e:
+        check("injected persistent" in str(e), f"wrong error: {e}")
+    print("[service] TopK('edp', 8) runner equals reduce_oracle over phase "
+          "4's lanes; a persistent fault on stage cuda raises "
+          "SweepUnitError")
+    del first, second, broken
+
+    # ---- the runner's CLI, killed by SIGKILL and resumed -----------------
+    default_profile(device=dev)          # the cache the CLIs read
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop(FAULT_PLAN_ENV, None)
+    cli = [sys.executable, "-m", "repro_torch.service",
+           "--kernels", "bitcnt,crc32,susan,sha", "--unit-size", "3"]
+    ck2 = str(work / "cli")
+    t = time.perf_counter()
+    killed = subprocess.Popen(
+        cli + ["--ckpt-dir", ck2, "--out", str(work / "dead.npz")],
+        env=dict(env, **{FAULT_PLAN_ENV: FaultPlan(kill_at_unit=2)
+                         .to_json()}), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    solo = subprocess.Popen(cli + ["--out", str(work / "solo.npz")],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    solo_out = solo.communicate(timeout=300)[0]
+    killed_out = killed.communicate(timeout=300)[0]
+    check(killed.returncode == -9,
+          f"the killed CLI exited {killed.returncode}: {killed_out[-800:]}")
+    check(solo.returncode == 0, f"the solo CLI failed: {solo_out[-800:]}")
+    resumed = subprocess.run(
+        cli + ["--ckpt-dir", ck2, "--out", str(work / "resumed.npz"),
+               "--report-out", str(work / "rep.json")],
+        env=env, capture_output=True, text=True, timeout=300)
+    check(resumed.returncode == 0,
+          f"the resumed CLI failed: {resumed.stderr[-800:]}")
+    cli_s = time.perf_counter() - t
+    cli_rep = json.loads((work / "rep.json").read_text())
+    check(cli_rep["units_resumed"] == 2 and cli_rep["units_run"] == 9,
+          f"CLI resumed {cli_rep['units_resumed']}, ran "
+          f"{cli_rep['units_run']}")
+    a, b = np.load(work / "resumed.npz"), np.load(work / "solo.npz")
+    check(sorted(a.files) == sorted(dse.SweepResult._fields)
+          and all(a[f].tobytes() == b[f].tobytes() for f in a.files),
+          "the resumed CLI's .npz differs from the uninterrupted run's")
+    print(f"[service] CLI: SIGKILL at unit 2 (exit -9), resumed 2 units and "
+          f"ran 9 on the card; its .npz equals an uninterrupted run's "
+          f"({cli_s:.2f} s for three processes, two at once); "
+          f"{resumed.stdout.strip()}")
+
+    # ---- the service over HTTP -------------------------------------------
+    d_req = SERVICE_LAYERS
+    reduced_g = G - 1
+    rows = [np.asarray([(g * H + h) * D + d for h in range(H)
+                        for d in range(d_req)]) for g in range(G)]
+    root = str(work / "service")
+
+    def transport(port=0):
+        svc = SweepService(prof, device=dev, slots=2,
+                           pack_max_lanes=4 * H * d_req,
+                           unit_size=H * d_req, max_steps=MAIN_MAX_STEPS,
+                           mem_size=images.shape[1], ckpt_root=root)
+        tr = SweepTransport(svc, "127.0.0.1", port)
+        tr.start()
+        return tr
+
+    def answer_ok(g, arrays, what):
+        if g == reduced_g:
+            equal_reduced(arrays, reduce_oracle(
+                spec, [f[rows[g]] for f in fields],
+                np.zeros(H * d_req, np.int64), np.arange(H * d_req), 1),
+                what)
+        else:
+            equal_lanes(arrays, what, rows=torch.as_tensor(rows[g]))
+
+    def client(tr, seed):
+        return SweepClient(tr.host, tr.port, seed=seed, timeout_s=120.0,
+                           retry=ClientRetry(max_attempts=60,
+                                             max_resubmits=8,
+                                             max_backoff_s=0.5))
+
+    def request(g):
+        return ([progs[g]], hws, images[:d_req],
+                spec if g == reduced_g else None)
+
+    t1 = transport()
+    body = {"v": 1, "idempotency_key": "smoke-0",
+            "sweep": sweep_to_wire(*request(0)[:3])}
+    s1, o1 = client(t1, 0)._request("POST", "/v1/sweeps", body)
+    s2, o2 = client(t1, 0)._request("POST", "/v1/sweeps", body)
+    check((s1, o1.get("created"), s2, o2.get("created")) ==
+          (201, True, 200, False) and o1["campaign"] == o2["campaign"],
+          f"a replayed key did not replay its campaign: {o1} {o2}")
+    results, walls, errors = {}, {}, []
+
+    def drive(g, tr):
+        t0 = time.perf_counter()
+        try:
+            progs_g, hws_g, imgs_g, red_g = request(g)
+            results[g] = client(tr, g).sweep(
+                progs_g, hws_g, imgs_g, reduce=red_g,
+                idempotency_key=f"smoke-{g}")
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(f"request {g}: {e!r}")
+        walls[g] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=drive, args=(g, t1))
+               for g in range(G)]
+    for th in threads:
+        th.start()
+    # drain once the first campaign is complete; its clients ride the
+    # drain to a new transport on the same port and checkpoint root
+    deadline = time.monotonic() + 300
+    done = False
+    while not done and time.monotonic() < deadline and not errors:
+        done = any(client(t1, 9)._request("GET", f"/v1/sweeps/c{i}")[1]
+                   .get("status") == "complete" for i in range(G))
+        time.sleep(0.01)
+    check(done, f"no campaign completed within 300 s: {errors}")
+    t1.request_drain()
+    check(t1.wait(120), "the first transport did not drain")
+    t1.close()
+    t2 = transport(t1.port)
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads) and not errors,
+          f"requests did not complete: {errors}")
+    service_wall = time.perf_counter() - t
+    for g in range(G):
+        answer_ok(g, results[g].arrays, f"service request {g}")
+    resubmits = sum(results[g].stats.resubmits for g in range(G))
+    print(f"[service] HTTP: {G} requests of {H * d_req} lanes (request "
+          f"{reduced_g} TopK('edp', 8)), slots 2, units of {H * d_req}: "
+          f"every answer equals phase 4's rows (or the oracle over them); "
+          f"a replayed key replays its campaign; drained after the first "
+          f"campaign completed, {resubmits} resubmissions to a new "
+          f"transport on the same port and checkpoint root")
+    print(f"[service] wall per request (from submission, drain and restart "
+          f"included): " + ", ".join(f"{walls[g]:.3f} s" for g in range(G))
+          + f"; all {G} in {service_wall:.3f} s")
+    print("[service] admission after the restart (rids, units resumed "
+          "from the checkpoints): " + "; ".join(
+              f"{e['rids']} {e['resumed_units']}"
+              for e in t2.service.admission_log))
+    # each request alone on the new transport (its own campaign), then
+    # again on a third transport on the same checkpoint root: there every
+    # unit resumes and the kernel never runs
+    rounds = []
+    for tr in (t2, None):
+        if tr is None:
+            t2.close()
+            tr = transport()
+        before = sweep_engine.launches
+        t = time.perf_counter()
+        for g in range(G):
+            progs_g, hws_g, imgs_g, red_g = request(g)
+            answer_ok(g, client(tr, 20 + g).sweep(
+                progs_g, hws_g, imgs_g, reduce=red_g,
+                idempotency_key=f"smoke-{len(rounds)}-{g}").arrays,
+                f"request {g} alone")
+        rounds.append((time.perf_counter() - t,
+                       sweep_engine.launches - before,
+                       sum(e["resumed_units"]
+                           for e in tr.service.admission_log)))
+    tr.close()
+    check(rounds[1][1] == 0 and rounds[1][2] == G,
+          f"a third transport resumed {rounds[1][2]} of {G} units and "
+          f"launched the kernel {rounds[1][1]} times")
+    print(f"[service] each request alone: {rounds[0][0]:.3f} s, "
+          f"{rounds[0][1]} launches; resubmitted to a third transport on "
+          f"the same checkpoint root: {rounds[1][0]:.3f} s, every unit "
+          f"resumed, no launch")
+
+    # ---- autotune --------------------------------------------------------
+    tuned = []
+    t = time.perf_counter()
+    cfg = tune_sweep(progs, prof, hws, plan.images, max_steps=MAIN_MAX_STEPS,
+                     device=dev, repeats=2,
+                     log=lambda c, sec: tuned.append((c, sec * 1e3)))
+    tune_s = time.perf_counter() - t
+    for c, ms in tuned:
+        print(f"[autotune] max_buckets {c['max_buckets']} chunk_steps "
+              f"{c['chunk_steps']} blk_b {c['blk_b']}: {ms:.3f} ms")
+    static = next(ms for c, ms in tuned if (c["blk_b"], c["chunk_steps"],
+                                             c["max_buckets"]) == (32, 64, 4))
+    best = min(ms for _, ms in tuned)
+    held = dse.make_bucketed_sweep_fn(progs, prof, hws, plan.images,
+                                      max_steps=MAIN_MAX_STEPS, device=dev)
+    check(held.cfg.source == "cache", f"AUTO knobs came from "
+          f"{held.cfg.source}, not the cache")
+    print(f"[autotune] {len(tuned)} candidates in {tune_s:.2f} s; winner "
+          f"blk_b {cfg.blk_b} chunk_steps {cfg.chunk_steps} max_buckets "
+          f"{cfg.max_buckets}: {best:.3f} ms against the static 32/64/4's "
+          f"{static:.3f} ms")
+    # dse.sweep end to end (plan, buckets, kernel, scatter), the tuned
+    # knobs against the static ones in turns: static, AUTO, AUTO, static
+    walls = {"static": [], "AUTO": []}
+    for which in ("static", "AUTO", "AUTO", "static"):
+        knobs = (dict(chunk_steps=64, blk_b=32, max_buckets=4)
+                 if which == "static" else {})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = dse.sweep(programs=progs, profile=prof, hw_configs=hws,
+                        mem_images=images, max_steps=MAIN_MAX_STEPS,
+                        device=dev, **knobs)
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t)
+        equal_lanes(got, f"{which} sweep")
+    print(f"[autotune] dse.sweep wall, static 32/64/4 "
+          + " / ".join(f"{w:.4f}" for w in walls["static"])
+          + " s, AUTO (from the cache) "
+          + " / ".join(f"{w:.4f}" for w in walls["AUTO"])
+          + " s; every run equals phase 4")
+    launches = sweep_engine.launches
+    print(f"[service] phase {time.perf_counter() - t_phase:.1f} s; sweep "
+          f"launches {launches}")
+    check(launches > 0, "the service phase never launched the sweep kernel")
+    return {"launches": launches, "tuned_ms": best, "static_ms": static,
+            "auto_sweep_s": walls["AUTO"], "static_sweep_s": walls["static"]}
+
+
 def flash_phase(dev) -> dict:
     """Phase 5: the flash-attention kernel against its plain version."""
     import torch
@@ -844,6 +1182,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     topos = [hwconfig.TOPOLOGIES[t]() for t in sorted(hwconfig.TOPOLOGIES)]
+    # checkpoints, outputs and an empty autotune cache of this run's own,
+    # inside the checkout: AUTO knobs resolve to the static defaults
+    # until phase 4c tunes the campaign
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                       dir=ROOT / "build")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(work.name) / "autotune.json")
 
     # ---- 1. device and build ---------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1062,6 +1408,10 @@ def main() -> int:
     analysis = analysis_phase(dev, prof_main, progs, hws, hw_names, images,
                               res, wall, conv_traces, compare_lanes)
 
+    # ---- 4c. the crash-safe sweep service, autotune -----------------------
+    service = service_phase(dev, prof_main, progs, hws, images, res, wall,
+                            Path(work.name))
+
     # ---- 5-8. the language-model kernels and the serving path -------------
     flash_entry = flash_phase(dev)
     ssd_entry = ssd_phase(dev)
@@ -1088,7 +1438,10 @@ def main() -> int:
          "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": sweep_bound,
          "bound_by": sweep_bound_by, "library_ms": None,
          "max_rel_err": main_rel, "lanes": B, "lane_steps": lane_steps,
-         "analysis_launches": analysis["cgra_sweep"]},
+         "analysis_launches": analysis["cgra_sweep"],
+         "service_launches": service["launches"],
+         "tuned_sweep_ms": service["tuned_ms"],
+         "static_sweep_ms": service["static_ms"]},
         {"name": "alu_dispatch", "route": "cuda",
          "source": "src/repro_torch/kernels/cgra_step/csrc/cgra_alu.cu",
          "replaces": "src/repro/kernels/cgra_step/kernel.py:68",
@@ -1107,6 +1460,7 @@ def main() -> int:
           f"{serve_stats['prefill_tok_s']:.1f} prefill tokens/s, "
           f"{serve_stats['decode_ms_per_step']:.3f} ms per decode step, "
           f"{serve_stats['decode_tok_s']:.1f} decode tokens/s")
+    work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

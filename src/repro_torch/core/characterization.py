@@ -20,6 +20,8 @@ Conventions chosen where the paper is silent (documented per DESIGN.md):
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -53,7 +55,20 @@ class Profile:
     t_clk_ns: float
 
     def save(self, path):
-        np.savez(path, **dataclasses.asdict(self))
+        """Atomic (tmp + rename): processes sharing a cache file never
+        read a partial one."""
+        path = Path(path)
+        if path.suffix != ".npz":            # np.savez's own naming
+            path = path.with_name(path.name + ".npz")
+        fd, tmp = tempfile.mkstemp(dir=str(path.parent), prefix=path.name,
+                                   suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **dataclasses.asdict(self))
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
 
     @classmethod
     def load(cls, path) -> "Profile":

@@ -22,13 +22,17 @@ the ``(G, K)`` candidate sets to the host; ``sweep(mappings=...)``
 sweeps a mapper's candidate set as the program axis; ``search_mappings``
 closes the loop (sweep candidates, keep the best, mutate, re-sweep).
 
-The reference's ``backend=``, ``interpret=`` (one engine here: the CUDA
-kernel, or its plain version on the CPU), ``autotune=`` (knobs are the
-reference's static defaults) and ``mesh=`` (one device) have no
-counterpart yet.
+``chunk_steps``, ``blk_b`` and ``max_buckets`` of ``sweep``,
+``make_bucketed_sweep_fn`` and ``search_mappings`` default to
+``autotune.AUTO``: they resolve through the per-shape-class autotune
+cache (``core.autotune``), else the static defaults 64 / 32 / 4; none of
+them changes a result.  The reference's ``backend=`` and ``interpret=``
+(one engine here: the CUDA kernel, or its plain version on the CPU) and
+``mesh=`` (one device) have no counterpart yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -38,6 +42,8 @@ from ..analysis import pareto as _pareto
 from ..device import DeviceLike, as_int32, resolve_device
 from ..kernels.cgra_sweep.ops import sweep_engine
 from ..kernels.cgra_sweep.ref import LaneState, SweepTables, init_lanes
+from .autotune import (AUTO, ShapeClass, TunedConfig, autotune_enabled,
+                       default_cache, tune_sweep)
 from .characterization import Profile
 from .hwconfig import HwConfig, stack_configs
 from .memory import (DEFAULT_MAX_BANKS, scoreboard_bound,
@@ -193,6 +199,10 @@ class GridPlan(NamedTuple):
     hw_grid: HwConfig          # (B,) fields
     max_banks: int             # config-derived scoreboard bound
 
+    @property
+    def n_lanes(self) -> int:
+        return int(self.img_idx.shape[0])
+
 
 def plan_grid(program: Optional[Programs] = None,
               hw_configs: Sequence[HwConfig] = None,
@@ -267,8 +277,10 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
           hw_configs: Sequence[HwConfig] = None, mem_images=None, *,
           programs: Optional[Sequence[Program]] = None,
           max_steps: int = 2048, mem_size: int = 4096,
-          chunk_steps: Optional[int] = 64, blk_b: int = 32,
-          max_buckets: int = 4,
+          chunk_steps: Union[int, None, str] = AUTO,
+          blk_b: Union[int, str] = AUTO,
+          max_buckets: Union[int, str] = AUTO,
+          autotune: Optional[bool] = None,
           reduce: Optional[_pareto.Reduction] = None,
           observed_steps: Optional[Sequence[int]] = None,
           mappings: Optional[MappingSet] = None,
@@ -279,6 +291,14 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
     program/programs: a single ``Program``, a sequence of programs, or a
     ``ProgramBatch``.  mem_images: (D, mem_size).  Returns (B,) tensors
     on ``device`` in row order ``(g*H + h)*D + d``.
+
+    chunk_steps / blk_b / max_buckets default to ``autotune.AUTO``: they
+    resolve through the autotune cache for this sweep's shape class,
+    else the static defaults (64 / 32 / 4); concrete values pin them
+    (``chunk_steps=None`` is one chunk of max_steps).  With
+    ``autotune=True`` (or ``REPRO_TORCH_AUTOTUNE=1``) an untuned
+    multi-program shape is timed over the candidate grid first
+    (``autotune.tune_sweep``) and the winner persisted.
 
     max_buckets > 1 splits a multi-kernel sweep into up to that many
     length buckets, each packed to its own ``t_max`` and run on its own;
@@ -318,7 +338,7 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
     res = make_bucketed_sweep_fn(
         program, profile, hw_configs, mem_images, max_steps=max_steps,
         mem_size=mem_size, chunk_steps=chunk_steps, blk_b=blk_b,
-        max_buckets=max_buckets, reduce=reduce,
+        max_buckets=max_buckets, autotune=autotune, reduce=reduce,
         observed_steps=observed_steps, device=device)()
     if mappings is not None and reduce is not None and fold_mappings:
         return _pareto.fold_segments(reduce, res, mappings.kernel_of,
@@ -329,8 +349,10 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
 def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                            hw_configs: Sequence[HwConfig], mem_images, *,
                            max_steps: int = 2048, mem_size: int = 4096,
-                           chunk_steps: Optional[int] = 64, blk_b: int = 32,
-                           max_buckets: int = 4,
+                           chunk_steps: Union[int, None, str] = AUTO,
+                           blk_b: Union[int, str] = AUTO,
+                           max_buckets: Union[int, str] = AUTO,
+                           autotune: Optional[bool] = None,
                            reduce: Optional[_pareto.Reduction] = None,
                            observed_steps: Optional[Sequence[int]] = None,
                            device: DeviceLike = None):
@@ -341,7 +363,11 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
     device-resident lane operands once here; each ``fn()`` runs the
     buckets and scatters lanes back to canonical ``(g*H + h)*D + d``
     order, as ``sweep()`` (one call of such a plan) returns them.
-    ``fn.buckets`` exposes the length buckets.
+    ``fn.buckets`` exposes the length buckets and ``fn.cfg`` the
+    resolved knobs (``autotune.TunedConfig``; ``cfg.source`` says where
+    they came from).  The knobs resolve once, for the whole set's shape
+    class, and every bucket runs with them: the combination
+    ``tune_sweep`` timed.
 
     With ``reduce`` each bucket reduces itself on the device (its lane
     operands carry canonical flat indices, computed here once) and
@@ -352,8 +378,13 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
     batch = as_program_batch(programs)
     images = as_int32(mem_images, dev)
     G, block = batch.n_programs, len(hw_configs) * images.shape[0]
+    cfg = _resolve_knobs(batch, hw_configs, images, dev,
+                         chunk_steps=chunk_steps, blk_b=blk_b,
+                         max_buckets=max_buckets, autotune=autotune,
+                         profile=profile, max_steps=max_steps,
+                         mem_size=mem_size)
     buckets = bucket_programs([batch.program(g) for g in range(G)],
-                              max_buckets if G > 1 else 1,
+                              cfg.max_buckets if G > 1 else 1,
                               observed_steps=observed_steps)
     bucket_fns = []
     for group, b in zip(buckets.groups, buckets.batches):
@@ -366,7 +397,7 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                  for g in group]), device=dev))
         bucket_fns.append((make_grid_fn(
             plan, profile, max_steps=max_steps, mem_size=mem_size,
-            chunk_steps=chunk_steps, blk_b=blk_b, reduce=reduce),
+            chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b, reduce=reduce),
             tuple(args)))
 
     if reduce is not None:
@@ -381,7 +412,35 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                             buckets.groups, block, G, dev)
 
     fn.buckets = buckets
+    fn.cfg = cfg
     return fn
+
+
+def _resolve_knobs(batch: ProgramBatch, hw_configs: Sequence[HwConfig],
+                   images: torch.Tensor, device: torch.device, *,
+                   chunk_steps, blk_b, max_buckets,
+                   autotune: Optional[bool] = None, profile: Profile = None,
+                   max_steps: int = 2048,
+                   mem_size: int = 4096) -> TunedConfig:
+    """The sweep's knobs for its shape class: explicit values win, AUTO
+    ones come from the autotune cache, else the static defaults.  With
+    tuning opted in (``autotune``, else ``REPRO_TORCH_AUTOTUNE``), an
+    untuned multi-program shape is timed first and its winner used."""
+    shape = ShapeClass(G=batch.n_programs, t_max=batch.t_max,
+                       H=len(hw_configs), D=int(images.shape[0]),
+                       device=device.type)
+    cache = default_cache()
+    cfg = cache.resolve(shape, blk_b=blk_b, chunk_steps=chunk_steps,
+                        max_buckets=max_buckets)
+    if (autotune_enabled(autotune) and cfg.source == "default"
+            and batch.n_programs > 1):
+        tune_sweep(batch, profile, hw_configs, images, max_steps=max_steps,
+                   mem_size=mem_size, device=device, cache=cache)
+        # the caller's pinned knobs still win over the timed winner
+        cfg = dataclasses.replace(
+            cache.resolve(shape, blk_b=blk_b, chunk_steps=chunk_steps,
+                          max_buckets=max_buckets), source="tuned")
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +482,10 @@ def search_mappings(dags: Sequence, profile: Profile,
                     names: Optional[Sequence[str]] = None,
                     rows: int = 4, cols: int = 4,
                     max_steps: int = 2048, mem_size: int = 4096,
-                    chunk_steps: Optional[int] = 64, blk_b: int = 32,
-                    max_buckets: int = 4,
+                    chunk_steps: Union[int, None, str] = AUTO,
+                    blk_b: Union[int, str] = AUTO,
+                    max_buckets: Union[int, str] = AUTO,
+                    autotune: Optional[bool] = None,
                     reduce: Optional[_pareto.Reduction] = None,
                     device: DeviceLike = None) -> MappingSearchResult:
     """Greedy mapping refinement: sweep K candidates -> keep top-M ->
@@ -458,7 +519,7 @@ def search_mappings(dags: Sequence, profile: Profile,
     top1 = _pareto.TopK(objective, k=1)
     knobs = dict(max_steps=max_steps, mem_size=mem_size,
                  chunk_steps=chunk_steps, blk_b=blk_b,
-                 max_buckets=max_buckets, device=dev)
+                 max_buckets=max_buckets, autotune=autotune, device=dev)
 
     survivors = [None] * n_kernels      # per kernel: list[MappingCandidate]
     best = [None] * n_kernels           # per kernel: (score, candidate)

@@ -26,6 +26,15 @@ pytestmark = pytest.mark.cuda
 TOPOS = sorted(hwconfig.TOPOLOGIES)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """AUTO knobs resolve from an empty cache of this module's own."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+        yield
+
+
 @pytest.fixture(scope="module")
 def gpu():
     if not torch.cuda.is_available():
@@ -167,6 +176,62 @@ def test_search_mappings_on_gpu_equals_host(gpu, prof):
         np.testing.assert_allclose(g_row["worst"], w_row["worst"],
                                    rtol=1e-5)
     _assert_reduced_close(got.front, want.front)
+
+
+def test_runner_on_gpu_killed_and_resumed_equals_host(gpu, prof, tmp_path):
+    """A runner campaign on the card stops after two units; a second
+    runner on the same checkpoint directory resumes them and runs the
+    rest through the kernel.  The stitched result equals the host's
+    plain run bit for bit (energy included: the kernel is built with
+    -fmad=false), and its one stage is the kernel."""
+    from repro_torch.service import ResumableSweepRunner
+    progs, hws, images = _grid()
+    kw = dict(programs=progs, profile=prof, hw_configs=hws,
+              mem_images=images, max_steps=2048, unit_size=7)
+    first = ResumableSweepRunner(device=gpu, ckpt_dir=str(tmp_path), **kw)
+    assert first.stage.name == "cuda"
+    first.run_unit(0)
+    first.run_unit(1)
+    first.mgr.wait()
+    before = sweep_engine.launches
+    got, rep = ResumableSweepRunner(device=gpu, ckpt_dir=str(tmp_path),
+                                    **kw).run()
+    assert sweep_engine.launches > before
+    assert rep.units_resumed == 2 and rep.units_run == rep.units_total - 2
+    assert {r.backend for r in rep.records} == {"cuda"}
+    want, _ = ResumableSweepRunner(device="cpu", **kw).run()
+    for f in dse.SweepResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_auto_sweep_on_gpu_resolves_from_the_cache(gpu, prof, tmp_path,
+                                                   monkeypatch):
+    """AUTO knobs on the card come from a cache entry for the card's
+    shape class (never one timed on the host) and change no result."""
+    from repro_torch.core.autotune import (AutotuneCache, ShapeClass,
+                                           TunedConfig)
+    from repro_torch.core.program import pack_programs
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
+    progs, hws, images = _grid()
+    shape = dict(G=len(progs), t_max=pack_programs(progs).t_max,
+                 H=len(hws), D=images.shape[0])
+    cache = AutotuneCache(path)
+    cache.store(ShapeClass(**shape, device="cpu"),
+                TunedConfig(blk_b=32, chunk_steps=None, max_buckets=1))
+    cache.store(ShapeClass(**shape, device="cuda"),
+                TunedConfig(blk_b=16, chunk_steps=128, max_buckets=2))
+    kw = dict(programs=progs, profile=prof, hw_configs=hws,
+              mem_images=images, max_steps=2048)
+    fn = dse.make_bucketed_sweep_fn(device=gpu, **kw)
+    assert fn.cfg.source == "cache"
+    assert (fn.cfg.blk_b, fn.cfg.chunk_steps, fn.cfg.max_buckets) \
+        == (16, 128, 2)
+    got = dse.sweep(device=gpu, **kw)
+    want = dse.sweep(device=gpu, chunk_steps=64, blk_b=32, max_buckets=4,
+                     **kw)
+    for f in dse.SweepResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 # ---- the language-model kernels ---------------------------------------

@@ -26,6 +26,15 @@ INT_FIELDS = ("latency_cc", "checksum", "steps_executed")
 KNOBS = dict(chunk_steps=64, blk_b=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """AUTO knobs resolve from an empty cache of this module's own."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+        yield
+
+
 def _ref_sweep(profile, **kw):
     res = ref_dse.sweep(profile=profile,
                         hw_configs=[ref_hw.TOPOLOGIES[t]() for t in TOPOS],

@@ -45,6 +45,15 @@ TOPOS = ("baseline", "c_interleaved")
 OBSERVED = [79, 128, 14, 36]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """AUTO knobs resolve from an empty cache of this module's own."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+        yield
+
+
 def _kernels(mod):
     return [mod.bitcnt(n_words=16), mod.crc32(n_words=3),
             mod.susan_thresh(n_pixels=16), mod.sha_mix(rounds=4)]

@@ -29,6 +29,15 @@ from repro_torch.core import detailed, dse, estimator, hwconfig  # noqa: E402
 TOPOS = sorted(ref_hw.TOPOLOGIES)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """AUTO knobs resolve from an empty cache of this module's own."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                  str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+        yield
+
+
 @pytest.fixture(scope="module")
 def port_profile(profile):
     return convert.profile_from_numpy(dataclasses.asdict(profile))

@@ -30,7 +30,10 @@ COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
           "core/trace.py", "core/detailed.py", "core/bitstream.py",
           "apps/__init__.py",
           "apps/common.py", "apps/mibench.py", "apps/conv.py",
-          "models/config.py", "configs/zamba2_2_7b.py"]
+          "models/config.py", "configs/zamba2_2_7b.py",
+          "runtime/__init__.py", "runtime/elastic.py", "runtime/faults.py",
+          "runtime/heartbeat.py", "runtime/straggler.py",
+          "service/monitor.py", "service/client.py", "service/__main__.py"]
 
 
 def _kernel_pairs():
