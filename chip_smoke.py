@@ -54,6 +54,18 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    then each request alone, and again on a third transport, where every
    unit resumes; tune_sweep over the campaign (27 candidates, each
    one's ms) into a temporary cache, then an AUTO sweep from the cache;
+4d. the sweep split across devices on the phase-4 campaign, with
+   kernel launches counted by device and by shard, every answer bit for
+   bit phase 4's lanes (or reduce_oracle over them): dse.sweep on
+   make_debug_mesh() (every visible card), on 4 shards of cuda:0
+   (unreduced, TopK("edp", 8), a (latency, energy) front of up to H*D
+   points) and on 3
+   (unreduced and TopK: 2 pad lanes), each mesh's wall beside the
+   unsharded sweep's in turns, the device time of one unsharded and one
+   4-shard sweep; a ResumableSweepRunner on the 4-shard mesh, 10 units
+   of 4096 lanes, losing 2 of its 4 nodes after unit 1 and re-planning
+   to 2 shards; one of its unit checkpoints restored onto cuda:0 by
+   restore_resharded;
 5. the flash-attention kernel against its plain version on the card at
    the serving path's prefill shape (B=1, S=2048, H=32, hd=80, bf16,
    causal) and at f32 hd 16 and 128, a ragged S=1000, causal=False,
@@ -862,6 +874,175 @@ def service_phase(dev, prof, progs, hws, images, res, sweep_wall,
             "auto_sweep_s": walls["AUTO"], "static_sweep_s": walls["static"]}
 
 
+def mesh_phase(dev, prof, progs, hws, images, res, sweep_wall,
+               work: Path) -> dict:
+    """Phase 4d: the sweep split across devices on the phase-4 campaign;
+    every answer is held to phase 4's lanes bit for bit (or to the oracle
+    over them).  Returns the phase's launches, by device and by shard,
+    and each mesh's walls.
+
+    ``work`` is an empty directory for the runner's checkpoints."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.pareto import (REDUCED_FIELDS, ParetoFront,
+                                             TopK, reduce_oracle)
+    from repro_torch.checkpoint import restore_resharded
+    from repro_torch.core import dse
+    from repro_torch.kernels.cgra_sweep.ops import sweep_engine
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.service import FleetMonitor, ResumableSweepRunner
+
+    G, H, D = len(progs), len(hws), images.shape[0]
+    B = G * H * D
+    want = [x.cpu() for x in res]
+    fields = [x.numpy() for x in want]
+    prog_idx = np.repeat(np.arange(G), H * D)
+    # phase 4's knobs (the static defaults; phase 4c's tuned winner sits
+    # in the cache for one entry), so every wall compares the same work
+    knobs = dict(chunk_steps=64, blk_b=32, max_buckets=4)
+    kw = dict(programs=progs, profile=prof, hw_configs=hws,
+              mem_images=images, max_steps=MAIN_MAX_STEPS, **knobs)
+
+    def equal_lanes(got, what, rows=slice(None), on=None):
+        for f, w in zip(dse.SweepResult._fields, want):
+            g = getattr(got, f) if not isinstance(got, dict) else got[f]
+            check(on is None or g.device == on,
+                  f"{what}: {f} lies on {g.device}, not {on}")
+            g = g.cpu()
+            check(g.dtype == w.dtype and torch.equal(g, w[rows]),
+                  f"{what}: {f} differs from phase 4")
+
+    def equal_reduced(got, oracle, what):
+        for f in REDUCED_FIELDS:
+            g, w = np.asarray(getattr(got, f)), getattr(oracle, f)
+            check(g.dtype == w.dtype and g.tobytes() == w.tobytes(),
+                  f"{what}: {f} differs from reduce_oracle over phase 4")
+        check(not np.asarray(got.clipped).any(), f"{what}: a clipped front")
+
+    def synchronize():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sweep_engine.launches = 0
+    sweep_engine.device_launches.clear()
+    t_phase = time.perf_counter()
+    meshes = {"all cards": make_debug_mesh(),
+              "4 on cuda:0": make_debug_mesh(4, device="cuda:0"),
+              "3 on cuda:0": make_debug_mesh(3, device="cuda:0")}
+    check(meshes["all cards"].devices.size == torch.cuda.device_count(),
+          "make_debug_mesh() does not hold every visible card")
+    first = torch.device("cuda", 0)
+
+    # ---- unreduced: each mesh beside the unsharded sweep, in turns -------
+    walls = {name: [] for name in ["unsharded", *meshes]}
+    shard_launches = {}
+    order = ["unsharded", *meshes]
+    for name in order + order[::-1]:
+        synchronize()
+        t = time.perf_counter()
+        if name == "unsharded":
+            got = dse.sweep(device=dev, **kw)
+        else:
+            fn = dse.make_bucketed_sweep_fn(mesh=meshes[name], **kw)
+            got = fn()
+            shard_launches.setdefault(name, [
+                sum(grid.shard_launches[i] for grid in fn.grids)
+                for i in range(meshes[name].devices.size)])
+        synchronize()
+        walls[name].append(time.perf_counter() - t)
+        equal_lanes(got, f"sweep on {name}", on=first)
+    for name, counts in shard_launches.items():
+        check(min(counts) > 0, f"a shard of {name} never launched")
+    print(f"[mesh] every mesh equals phase 4 in all five fields, gathered "
+          f"on {first}: " + "; ".join(
+              f"{name} ({meshes[name].devices.size} shards, "
+              f"{len(meshes[name].distinct())} distinct device(s))"
+              for name in meshes))
+    print(f"[mesh] dse.sweep wall, knobs 32/64/4, in turns (phase 4: "
+          f"{sweep_wall:.4f} s): " + "; ".join(
+              f"{name} " + " / ".join(f"{w:.4f}" for w in ws) + " s"
+              for name, ws in walls.items()))
+    print("[mesh] chunk launches per shard, first call: " + "; ".join(
+        f"{name} {counts}" for name, counts in shard_launches.items()))
+    kernel_ms = {}
+    for name in ("unsharded", "4 on cuda:0"):
+        run = ((lambda: dse.sweep(device=dev, **kw)) if name == "unsharded"
+               else (lambda: dse.sweep(mesh=meshes["4 on cuda:0"], **kw)))
+        kernel_ms[name] = profile_kernels(run, top=2)
+        print(f"[mesh] device time of one sweep, {name}: {kernel_ms[name]}")
+
+    # ---- reduced: each shard reduces on its device -----------------------
+    # a front of up to H*D points: a shard's own front of a program (ties
+    # kept) may hold more points than the program's whole front, and a
+    # shard that clips marks the merged front clipped
+    for name, specs in (("4 on cuda:0",
+                         (TopK("edp", 8),
+                          ParetoFront(("latency_cc", "energy_pj"),
+                                      max_points=H * D))),
+                        ("3 on cuda:0", (TopK("edp", 8),))):
+        for spec in specs:
+            oracle = reduce_oracle(spec, fields, prog_idx, np.arange(B), G)
+            t = time.perf_counter()
+            got = dse.sweep(mesh=meshes[name], reduce=spec, **kw)
+            wall = time.perf_counter() - t
+            equal_reduced(got, oracle, f"{spec} on {name}")
+            print(f"[mesh] {spec} on {name}: bit for bit reduce_oracle over "
+                  f"phase 4's lanes, {int(np.asarray(got.count).sum())} "
+                  f"candidates, {wall:.4f} s")
+
+    # ---- the runner: 4 shards lose 2 nodes and re-plan to 2 ---------------
+    clock = {"now": 0.0}
+    monitor = FleetMonitor([f"dev{i}" for i in range(4)],
+                           clock=lambda: clock["now"], timeout=5.0)
+    dead = ((1, "dev2"), (1, "dev3"))
+    runner = ResumableSweepRunner(
+        programs=progs, profile=prof, hw_configs=hws, mem_images=images,
+        max_steps=MAIN_MAX_STEPS, unit_size=SERVICE_UNIT, chunk_steps=64,
+        blk_b=32, mesh=meshes["4 on cuda:0"], monitor=monitor,
+        injector=FaultInjector(FaultPlan(dead_nodes=dead)),
+        ckpt_dir=str(work / "mesh_runner"))
+    check(runner.n_units == 10, f"mesh runner: {runner.n_units} units")
+    t = time.perf_counter()
+    for k in runner.pending_units():
+        runner.run_unit(k)
+        clock["now"] += 6.0
+    runner.mgr.wait()
+    runner_wall = time.perf_counter() - t
+    replans = runner.report.replans
+    check(len(replans) == 1 and replans[0]["dropped"] == ["dev2", "dev3"]
+          and replans[0]["elastic_plan"]["n_devices"] == 2
+          and runner.mesh.devices.size == 2,
+          f"mesh runner re-planned as {replans}")
+    equal_lanes(runner.stitch(), "mesh runner")
+    unit = 3
+    lo, hi = runner._unit_range(unit)
+    like = {f: np.zeros(hi - lo, w.numpy().dtype)
+            for f, w in zip(dse.SweepResult._fields, want)}
+    back = restore_resharded(like, runner.mgr.path(unit), first)
+    equal_lanes(back, f"unit {unit} restored onto {first}",
+                rows=slice(lo, hi), on=first)
+    print(f"[mesh] runner: 10 units of {SERVICE_UNIT} lanes on 4 shards; "
+          f"nodes dev2, dev3 silent from unit 1, re-planned at unit "
+          f"{replans[0]['unit']} to {runner.mesh.devices.size} shards "
+          f"(elastic_plan {replans[0]['elastic_plan']}); stitched equal to "
+          f"phase 4, {runner_wall:.4f} s; unit {unit}'s checkpoint restored "
+          f"onto {first} by restore_resharded equals phase 4's rows")
+
+    launches = sweep_engine.launches
+    by_device = dict(sweep_engine.device_launches)
+    check(launches > 0 and sum(by_device.values()) == launches,
+          f"mesh launches {launches} against by device {by_device}")
+    mesh_devices = {str(d) for m in meshes.values() for d in m.distinct()}
+    check(set(by_device) <= mesh_devices,
+          f"launches on {set(by_device)} outside the meshes' devices")
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s; sweep "
+          f"launches {launches}, by device {by_device}")
+    return {"launches": launches, "by_device": by_device,
+            "by_shard": shard_launches,
+            "walls": walls, "runner_wall": runner_wall}
+
+
 def flash_phase(dev) -> dict:
     """Phase 5: the flash-attention kernel against its plain version."""
     import torch
@@ -1412,6 +1593,10 @@ def main() -> int:
     service = service_phase(dev, prof_main, progs, hws, images, res, wall,
                             Path(work.name))
 
+    # ---- 4d. the sweep split across devices ---------------------------------
+    mesh = mesh_phase(dev, prof_main, progs, hws, images, res, wall,
+                      Path(work.name))
+
     # ---- 5-8. the language-model kernels and the serving path -------------
     flash_entry = flash_phase(dev)
     ssd_entry = ssd_phase(dev)
@@ -1441,7 +1626,10 @@ def main() -> int:
          "analysis_launches": analysis["cgra_sweep"],
          "service_launches": service["launches"],
          "tuned_sweep_ms": service["tuned_ms"],
-         "static_sweep_ms": service["static_ms"]},
+         "static_sweep_ms": service["static_ms"],
+         "mesh_launches": mesh["launches"],
+         "mesh_launches_by_device": mesh["by_device"],
+         "mesh_launches_by_shard": mesh["by_shard"]},
         {"name": "alu_dispatch", "route": "cuda",
          "source": "src/repro_torch/kernels/cgra_step/csrc/cgra_alu.cu",
          "replaces": "src/repro/kernels/cgra_step/kernel.py:68",

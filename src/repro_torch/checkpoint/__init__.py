@@ -1,1 +1,2 @@
-from .manager import CheckpointManager, load_tree, save_tree
+from .manager import (CheckpointManager, load_tree, restore_resharded,
+                      save_tree)

@@ -18,7 +18,9 @@ thread never touches a device tensor.
 Fault-tolerance properties exercised by tests:
   * atomic visibility (tmp-rename),
   * retention (keep_n) with never-delete-latest,
-  * async save (background thread; ``wait()`` joins before the next save).
+  * async save (background thread; ``wait()`` joins before the next save),
+  * elastic restore (``restore_resharded``: each leaf placed on the
+    device a tree of devices names, e.g. a survivor after a re-plan).
 """
 from __future__ import annotations
 
@@ -140,6 +142,42 @@ def load_tree(tree_like, directory: str | Path):
     return _unflatten(tree_like, leaves)
 
 
+def _place(like, devices, path, host, out) -> None:
+    """Walk ``like`` beside ``devices``; put each leaf's host array on
+    its device (a ``None`` device keeps it on the host).  A device at a
+    container node covers every leaf below it."""
+    if like is None:
+        return
+    kids = _children(like)
+    key = "/".join(path) or "leaf"
+    if kids is None:
+        arr = host[key]
+        out[key] = arr if devices is None else \
+            torch.as_tensor(arr, device=torch.device(devices))
+        return
+    sub = _children(devices) if devices is not None else None
+    if sub is None:                      # one device (or None) for all
+        sub = [(k, devices) for k, _ in kids]
+    sub = dict(sub)
+    for k, c in kids:
+        if k not in sub:
+            raise ValueError(f"restore_resharded: no device for "
+                             f"{'/'.join(path + [k])}")
+        _place(c, sub[k], path + [k], host, out)
+
+
+def restore_resharded(tree_like, directory: str | Path, devices):
+    """Elastic restore: load into ``tree_like``'s structure and place
+    every leaf on the device ``devices`` names for it.  ``devices`` is a
+    tree like ``tree_like`` whose leaves are ``torch.device`` (or device
+    strings), or ``None`` to keep the host numpy leaf; a single device
+    covers a whole subtree."""
+    host = dict(_flatten(load_tree(tree_like, directory)))
+    out: Dict[str, Any] = {}
+    _place(tree_like, devices, [], host, out)
+    return _unflatten(tree_like, out)
+
+
 class CheckpointManager:
     """Step-addressed checkpoints with retention + async save."""
 
@@ -200,8 +238,14 @@ class CheckpointManager:
             shutil.rmtree(self.path(s), ignore_errors=True)
 
     # -- restore --------------------------------------------------------------
-    def restore_latest(self, tree_like):
+    def restore_latest(self, tree_like, *, shardings=None):
+        """``(tree, step)`` of the newest complete checkpoint, or ``(None,
+        None)``.  ``shardings``: a devices tree for ``restore_resharded``;
+        without it the leaves stay host numpy."""
         step = self.latest_step()
         if step is None:
             return None, None
+        if shardings is not None:
+            return restore_resharded(tree_like, self.path(step),
+                                     shardings), step
         return load_tree(tree_like, self.path(step)), step

@@ -26,7 +26,8 @@ first-encounter tuning is opted into with ``REPRO_TORCH_AUTOTUNE=1`` (or
 ``dse.sweep(..., autotune=True)``).
 
 Consulted by ``dse.sweep``, ``dse.make_bucketed_sweep_fn`` and
-``dse.search_mappings`` (every knob defaults to ``AUTO``), by
+``dse.search_mappings`` (every knob defaults to ``AUTO``; a sharded
+sweep's shape class counts its mesh's entries), by
 ``service.runner.ResumableSweepRunner`` (blk_b / chunk_steps) and by
 ``service.server.SweepService`` (bucket count of request packing).
 """
@@ -295,10 +296,23 @@ def default_candidates(shape: ShapeClass, max_steps: int,
             for b in buckets for c in chunks for k in blks]
 
 
-def _timer(device) -> Callable[[Callable[[], object]], float]:
+def _timer(device, devices=()) -> Callable[[Callable[[], object]], float]:
     """Seconds of one call: CUDA events around it on the card (the
-    device's own clock), ``time.perf_counter`` on the host."""
+    device's own clock), ``time.perf_counter`` on the host.  A sweep over
+    several cards (``devices``) is timed on the host, from a synchronise
+    of every card to the next."""
     import torch
+
+    if len(devices) > 1:
+        def timed(run):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            run()
+            for d in devices:
+                torch.cuda.synchronize(d)
+            return time.perf_counter() - t0
+        return timed
 
     if device.type == "cuda":
         def timed(run):
@@ -323,36 +337,42 @@ def tune_sweep(programs, profile, hw_configs, mem_images, *,
                device=None, cache: Optional[AutotuneCache] = None,
                candidates: Optional[Sequence[dict]] = None,
                repeats: int = 2,
-               log: Optional[Callable[[dict, float], None]] = None
-               ) -> TunedConfig:
+               log: Optional[Callable[[dict, float], None]] = None,
+               mesh=None) -> TunedConfig:
     """Time the candidate grid on the actual sweep and persist the winner.
 
     Each candidate holds its bucketed plan (``make_bucketed_sweep_fn``),
     runs once to warm up, then is timed ``repeats`` times (the minimum
     kept).  The winner lands in the cache keyed by the sweep's shape
     class, so every later AUTO-knob sweep of that shape runs with it.
-    ``log(candidate, seconds)`` sees each candidate's best time.
+    ``log(candidate, seconds)`` sees each candidate's best time.  With
+    ``mesh`` the candidates are timed sharded, and the shape class
+    counts the mesh's entries (``n_devices``).
 
     Import of dse is deferred (dse imports this module)."""
     from ..device import as_int32, resolve_device
+    from ..parallel.sharding import mesh_device
     from . import dse
     from .program import as_program_batch
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None \
+        else mesh_device(mesh, device)
     batch = as_program_batch(programs)
     images = as_int32(mem_images, dev)         # on the device once
     G, H, D = batch.n_programs, len(hw_configs), int(images.shape[0])
-    shape = ShapeClass(G=G, t_max=batch.t_max, H=H, D=D, device=dev.type)
+    shape = ShapeClass(G=G, t_max=batch.t_max, H=H, D=D, device=dev.type,
+                       n_devices=1 if mesh is None else mesh.devices.size)
     cands = list(candidates) if candidates is not None \
         else default_candidates(shape, max_steps, batch.n_pes)
-    timed = _timer(dev)
+    timed = _timer(dev, () if mesh is None or dev.type != "cuda"
+                   else mesh.distinct())
     best = None                               # (seconds, candidate)
     for cand in cands:
         fn = dse.make_bucketed_sweep_fn(
             batch, profile, hw_configs, images, max_steps=max_steps,
             mem_size=mem_size, chunk_steps=cand["chunk_steps"],
             blk_b=cand["blk_b"], max_buckets=cand["max_buckets"],
-            device=dev)
+            device=dev, mesh=mesh)
         fn()                                  # warm up
         secs = min(timed(fn) for _ in range(max(1, repeats)))
         if log is not None:

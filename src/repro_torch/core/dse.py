@@ -22,13 +22,24 @@ the ``(G, K)`` candidate sets to the host; ``sweep(mappings=...)``
 sweeps a mapper's candidate set as the program axis; ``search_mappings``
 closes the loop (sweep candidates, keep the best, mutate, re-sweep).
 
+``sweep(mesh=...)``, ``make_bucketed_sweep_fn(mesh=...)`` and
+``make_grid_fn(mesh=...)`` split the flat lane axis over the entries of a
+``parallel.Mesh``: the grid is padded to a multiple of the entry count,
+the plan is placed once on each distinct device, every shard's lanes run
+on its device (``sweep_shards``: chunks in rounds across shards), and
+the ``(B,)`` fields are gathered on the mesh's first device -- or, with
+``reduce``, each shard reduces itself on its device and only the
+shards' ``(G, K)`` candidate sets reach the host merge.  One process
+drives every device; lanes are independent, so a sharded sweep equals
+the unsharded one bit for bit.
+
 ``chunk_steps``, ``blk_b`` and ``max_buckets`` of ``sweep``,
 ``make_bucketed_sweep_fn`` and ``search_mappings`` default to
 ``autotune.AUTO``: they resolve through the per-shape-class autotune
 cache (``core.autotune``), else the static defaults 64 / 32 / 4; none of
 them changes a result.  The reference's ``backend=`` and ``interpret=``
-(one engine here: the CUDA kernel, or its plain version on the CPU) and
-``mesh=`` (one device) have no counterpart yet.
+have no counterpart: there is one engine, the CUDA kernel, or its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -40,8 +51,10 @@ import torch
 
 from ..analysis import pareto as _pareto
 from ..device import DeviceLike, as_int32, resolve_device
-from ..kernels.cgra_sweep.ops import sweep_engine
+from ..kernels.cgra_sweep.ops import sweep_engine, sweep_shards
 from ..kernels.cgra_sweep.ref import LaneState, SweepTables, init_lanes
+from ..parallel.sharding import (Mesh, flat_shards, mesh_device, pad_batch,
+                                 padded_len)
 from .autotune import (AUTO, ShapeClass, TunedConfig, autotune_enabled,
                        default_cache, tune_sweep)
 from .characterization import Profile
@@ -232,14 +245,25 @@ def plan_grid(program: Optional[Programs] = None,
 def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
                  mem_size: int = 4096, chunk_steps: Optional[int] = 64,
                  blk_b: int = 32,
-                 reduce: Optional[_pareto.Reduction] = None):
+                 reduce: Optional[_pareto.Reduction] = None,
+                 mesh: Optional[Mesh] = None):
     """``fn(img_idx, hw_slice, prog_idx) -> SweepResult`` for any slice
     of the planned grid; lanes are independent, so a lane's result is the
     same in any slice.  Runs where the plan's images are.
 
     With ``reduce`` the signature gains a trailing ``lane_idx`` (flat grid
     index per lane, -1 for a padded lane) and the fn returns the slice's
-    ``ReducedResult``, reduced on the device."""
+    ``ReducedResult``, reduced on the device.
+
+    With ``mesh`` the slice is split over the mesh's entries
+    (``MeshGrid``): the plan is placed on each distinct device once,
+    here, and each call pads the slice to a multiple of the entry count;
+    the result is gathered on the mesh's first device, or, with
+    ``reduce``, merged on the host from the shards' candidate sets."""
+    if mesh is not None:
+        return MeshGrid(plan, profile, mesh, max_steps=max_steps,
+                        mem_size=mem_size, chunk_steps=chunk_steps,
+                        blk_b=blk_b, reduce=reduce)
     dev = plan.images.device
     run = _lanes_runner(plan.batch, profile, rows=4, cols=4,
                         mem_size=mem_size, max_steps=max_steps,
@@ -253,6 +277,100 @@ def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
     if reduce is not None:
         return _with_reduce(grid_fn, reduce, plan.batch.n_programs, dev)
     return grid_fn
+
+
+def _host_rows(x, dtype) -> np.ndarray:
+    """A lane row (tensor or array) as host numpy of ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+class MeshGrid:
+    """A grid plan placed on every distinct device of a mesh.
+
+    ``place(img_idx, hw, prog_idx[, lane_idx])`` pads a slice of the plan
+    to a multiple of the mesh's entry count and puts each shard's rows on
+    its device; ``run(placed)`` sweeps every shard (``sweep_shards``) and
+    gathers the result.  Calling the object does both, so it is a grid fn
+    with ``make_grid_fn``'s signature.  ``shard_launches`` counts the
+    kernel launches of each shard across calls."""
+
+    def __init__(self, plan: GridPlan, profile: Profile, mesh: Mesh, *,
+                 max_steps: int, mem_size: int, chunk_steps: Optional[int],
+                 blk_b: int, reduce: Optional[_pareto.Reduction] = None,
+                 images: Optional[dict] = None):
+        if plan.batch.n_pes != 16:
+            raise ValueError(
+                f"program batch {plan.batch.names!r}: n_pes="
+                f"{plan.batch.n_pes} does not match the 4x4 array")
+        if mesh.device_type != plan.images.device.type:
+            raise ValueError(f"the plan's images lie on "
+                             f"{plan.images.device}, the mesh on "
+                             f"{mesh.device_type} devices")
+        self.plan, self.profile, self.mesh = plan, profile, mesh
+        self.first = mesh_device(mesh)
+        self.reduce = reduce
+        self.knobs = dict(rows=4, cols=4, max_steps=max_steps,
+                          chunk_steps=chunk_steps, blk_b=blk_b)
+        self.mem_size = mem_size
+        self.images = images if images is not None else \
+            {d: plan.images.to(d) for d in mesh.distinct()}
+        self.tables = {d: sweep_tables(plan.batch, profile, d)
+                       for d in mesh.distinct()}
+        self.reducer = (None if reduce is None else
+                        _pareto.make_device_reducer(reduce,
+                                                    plan.batch.n_programs))
+        self.shard_launches = [0] * mesh.devices.size
+
+    def place(self, idx, hw: HwConfig, gi, lane=None):
+        """The shards' operands on their devices: ``(n_lanes, [(device,
+        img_idx, hw, prog_idx, lane_idx)])``."""
+        validate_bank_bound(hw.n_banks, self.plan.max_banks,
+                            where="dse.grid_fn")
+        idx = _host_rows(idx, np.int64)
+        B = len(idx)
+        Bp = padded_len(B, self.mesh.devices.size)
+        idx = pad_batch(idx, Bp)
+        gi = pad_batch(_host_rows(gi, np.int32), Bp)
+        hw = hw.map(lambda v: pad_batch(v.expand(B), Bp))
+        if lane is not None:
+            lane = pad_batch(_host_rows(lane, np.int32), Bp, fill=-1)
+        shards = []
+        for d, lo, hi in flat_shards(Bp, self.mesh):
+            shards.append((d, torch.as_tensor(idx[lo:hi], device=d),
+                           hw.map(lambda v: v[lo:hi].to(d).contiguous()),
+                           as_int32(gi[lo:hi], d),
+                           None if lane is None else as_int32(lane[lo:hi], d)))
+        return B, shards
+
+    def run(self, placed) -> Union[SweepResult, _pareto.ReducedResult]:
+        B, shards = placed
+        jobs = [(self.tables[d], hw, gi,
+                 init_lanes(self.images[d][idx], self.plan.batch.n_pes))
+                for d, idx, hw, gi, _ in shards]
+        for job in jobs:
+            if job[3].mem.shape[1] != self.mem_size:
+                raise ValueError(f"memory images must be (B, "
+                                 f"{self.mem_size}), got "
+                                 f"{tuple(job[3].mem.shape)}")
+        counts = sweep_shards(jobs, **self.knobs)
+        self.shard_launches = [a + b for a, b in
+                               zip(self.shard_launches, counts)]
+        results = [lane_results(job[3], self.profile) for job in jobs]
+        if self.reduce is not None:
+            parts = [_pareto._as_numpy(self.reducer(tuple(res), gi, lane))
+                     for res, (_, _, _, gi, lane) in zip(results, shards)]
+            return _pareto.merge_reduced(self.reduce, parts)
+        return SweepResult(*(
+            torch.cat([f.to(self.first) for f in field])[:B]
+            for field in zip(*results)))
+
+    def __call__(self, idx, hw: HwConfig, gi, lane=None):
+        if (lane is None) != (self.reduce is None):
+            raise TypeError("a reduced grid fn takes lane_idx; an "
+                            "unreduced one does not")
+        return self.run(self.place(idx, hw, gi, lane))
 
 
 def _scatter(parts, groups, block: int, n_programs: int,
@@ -284,7 +402,8 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
           reduce: Optional[_pareto.Reduction] = None,
           observed_steps: Optional[Sequence[int]] = None,
           mappings: Optional[MappingSet] = None,
-          fold_mappings: bool = True, device: DeviceLike = None
+          fold_mappings: bool = True, device: DeviceLike = None,
+          mesh: Optional[Mesh] = None
           ) -> Union[SweepResult, _pareto.ReducedResult]:
     """Run the full (program x hw x data) grid.
 
@@ -324,7 +443,12 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
     the winning mapping is ``mappings.mapping_of[idx // (H*D)]``.
     ``fold_mappings=False`` keeps the per-candidate rows.
 
-    Runs on the CUDA device unless ``device`` says otherwise."""
+    mesh: a ``parallel.Mesh``; the lanes split over its entries (see the
+    module docstring) and the result is the unsharded one, on the mesh's
+    first device.  ``device`` may then only name that engine.
+
+    Runs on the CUDA device unless ``device`` (or ``mesh``) says
+    otherwise."""
     if mappings is not None:
         if program is not None or programs is not None:
             raise TypeError(
@@ -339,7 +463,7 @@ def sweep(program: Optional[Programs] = None, profile: Profile = None,
         program, profile, hw_configs, mem_images, max_steps=max_steps,
         mem_size=mem_size, chunk_steps=chunk_steps, blk_b=blk_b,
         max_buckets=max_buckets, autotune=autotune, reduce=reduce,
-        observed_steps=observed_steps, device=device)()
+        observed_steps=observed_steps, device=device, mesh=mesh)()
     if mappings is not None and reduce is not None and fold_mappings:
         return _pareto.fold_segments(reduce, res, mappings.kernel_of,
                                      mappings.n_kernels)
@@ -355,7 +479,8 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                            autotune: Optional[bool] = None,
                            reduce: Optional[_pareto.Reduction] = None,
                            observed_steps: Optional[Sequence[int]] = None,
-                           device: DeviceLike = None):
+                           device: DeviceLike = None,
+                           mesh: Optional[Mesh] = None):
     """Hold a bucketed packed plan: ``fn() -> SweepResult``.
 
     A loop that re-executes the same kernel set (a search round, a
@@ -363,9 +488,10 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
     device-resident lane operands once here; each ``fn()`` runs the
     buckets and scatters lanes back to canonical ``(g*H + h)*D + d``
     order, as ``sweep()`` (one call of such a plan) returns them.
-    ``fn.buckets`` exposes the length buckets and ``fn.cfg`` the
+    ``fn.buckets`` exposes the length buckets, ``fn.cfg`` the
     resolved knobs (``autotune.TunedConfig``; ``cfg.source`` says where
-    they came from).  The knobs resolve once, for the whole set's shape
+    they came from) and ``fn.grids`` each bucket's ``MeshGrid`` (empty
+    without a mesh).  The knobs resolve once, for the whole set's shape
     class, and every bucket runs with them: the combination
     ``tune_sweep`` timed.
 
@@ -373,8 +499,13 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
     operands carry canonical flat indices, computed here once) and
     ``fn() -> ReducedResult`` merges the K-sized per-bucket candidate
     sets on the host.  ``observed_steps`` buckets by trip count instead
-    of static length (see ``program.bucket_programs``)."""
-    dev = resolve_device(device)
+    of static length (see ``program.bucket_programs``).
+
+    With ``mesh`` each bucket's lanes split over the mesh's entries, one
+    bucket after another: the images are placed on each distinct device
+    once and each bucket's shard operands once (``MeshGrid.place``)."""
+    dev = (resolve_device(device) if mesh is None
+           else mesh_device(mesh, device))
     batch = as_program_batch(programs)
     images = as_int32(mem_images, dev)
     G, block = batch.n_programs, len(hw_configs) * images.shape[0]
@@ -382,37 +513,51 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                          chunk_steps=chunk_steps, blk_b=blk_b,
                          max_buckets=max_buckets, autotune=autotune,
                          profile=profile, max_steps=max_steps,
-                         mem_size=mem_size)
+                         mem_size=mem_size, mesh=mesh)
     buckets = bucket_programs([batch.program(g) for g in range(G)],
                               cfg.max_buckets if G > 1 else 1,
                               observed_steps=observed_steps)
-    bucket_fns = []
+    placed_images = (None if mesh is None else
+                     {d: images.to(d) for d in mesh.distinct()})
+    bucket_fns, grids = [], []
     for group, b in zip(buckets.groups, buckets.batches):
         plan = plan_grid(b, hw_configs, images, device=dev)
+        lane = None if reduce is None else np.concatenate(
+            [np.arange(g * block, (g + 1) * block, dtype=np.int32)
+             for g in group])
+        knobs = dict(max_steps=max_steps, mem_size=mem_size,
+                     chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b,
+                     reduce=reduce)
+        if mesh is not None:
+            grid = MeshGrid(plan, profile, mesh, images=placed_images,
+                            **knobs)
+            grids.append(grid)
+            placed = grid.place(plan.img_idx, plan.hw_grid, plan.prog_idx,
+                                lane)
+            bucket_fns.append((lambda grid=grid, placed=placed:
+                               grid.run(placed)))
+            continue
         args = [as_int32(plan.img_idx, dev), plan.hw_grid,
                 as_int32(plan.prog_idx, dev)]
-        if reduce is not None:
-            args.append(torch.as_tensor(np.concatenate(
-                [np.arange(g * block, (g + 1) * block, dtype=np.int32)
-                 for g in group]), device=dev))
-        bucket_fns.append((make_grid_fn(
-            plan, profile, max_steps=max_steps, mem_size=mem_size,
-            chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b, reduce=reduce),
-            tuple(args)))
+        if lane is not None:
+            args.append(torch.as_tensor(lane, device=dev))
+        f = make_grid_fn(plan, profile, **knobs)
+        bucket_fns.append(lambda f=f, args=tuple(args): f(*args))
 
     if reduce is not None:
         def fn() -> _pareto.ReducedResult:
             placed = [_pareto.remap_segments(
-                _pareto._as_numpy(f(*args)), group, np.zeros(len(group)), G)
-                for group, (f, args) in zip(buckets.groups, bucket_fns)]
+                _pareto._as_numpy(run()), group, np.zeros(len(group)), G)
+                for group, run in zip(buckets.groups, bucket_fns)]
             return _pareto.merge_reduced(reduce, placed)
     else:
         def fn() -> SweepResult:
-            return _scatter([f(*args) for f, args in bucket_fns],
+            return _scatter([run() for run in bucket_fns],
                             buckets.groups, block, G, dev)
 
     fn.buckets = buckets
     fn.cfg = cfg
+    fn.grids = grids
     return fn
 
 
@@ -420,22 +565,24 @@ def _resolve_knobs(batch: ProgramBatch, hw_configs: Sequence[HwConfig],
                    images: torch.Tensor, device: torch.device, *,
                    chunk_steps, blk_b, max_buckets,
                    autotune: Optional[bool] = None, profile: Profile = None,
-                   max_steps: int = 2048,
-                   mem_size: int = 4096) -> TunedConfig:
+                   max_steps: int = 2048, mem_size: int = 4096,
+                   mesh: Optional[Mesh] = None) -> TunedConfig:
     """The sweep's knobs for its shape class: explicit values win, AUTO
     ones come from the autotune cache, else the static defaults.  With
     tuning opted in (``autotune``, else ``REPRO_TORCH_AUTOTUNE``), an
-    untuned multi-program shape is timed first and its winner used."""
+    untuned multi-program shape is timed first and its winner used.  A
+    sharded sweep's shape class counts the mesh's entries."""
     shape = ShapeClass(G=batch.n_programs, t_max=batch.t_max,
                        H=len(hw_configs), D=int(images.shape[0]),
-                       device=device.type)
+                       device=device.type,
+                       n_devices=1 if mesh is None else mesh.devices.size)
     cache = default_cache()
     cfg = cache.resolve(shape, blk_b=blk_b, chunk_steps=chunk_steps,
                         max_buckets=max_buckets)
     if (autotune_enabled(autotune) and cfg.source == "default"
             and batch.n_programs > 1):
         tune_sweep(batch, profile, hw_configs, images, max_steps=max_steps,
-                   mem_size=mem_size, device=device, cache=cache)
+                   mem_size=mem_size, device=device, cache=cache, mesh=mesh)
         # the caller's pinned knobs still win over the timed winner
         cfg = dataclasses.replace(
             cache.resolve(shape, blk_b=blk_b, chunk_steps=chunk_steps,

@@ -5,12 +5,16 @@
 it launches ``csrc/cgra_sweep.cu`` once per chunk of ``chunk_steps``
 instructions until every lane is done; for CPU tensors it runs the plain
 version ``ref.sweep_ref``.  There is no fallback from one to the other.
-``sweep_engine.launches`` counts the kernel launches.
+``sweep_shards`` runs several independent lane sets, each on the device
+its state lies on (the shards of a mesh).  ``sweep_engine.launches``
+counts the kernel launches, ``sweep_engine.device_launches`` the same
+launches by device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,7 +68,7 @@ def _check(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
             raise ValueError(f"sweep_engine: operand {name} must be on "
                              f"{dev} with shape {shape} and dtype {dtype}")
     if dev.type == "cuda":
-        max_threads = kernel_attributes()["max_threads"]
+        max_threads = kernel_attributes(dev)["max_threads"]
         if P > 32 or P & (P - 1) or not 1 <= blk_b * P <= max_threads:
             raise ValueError(
                 f"sweep_engine: the CUDA kernel takes P = rows*cols a power "
@@ -72,41 +76,99 @@ def _check(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
                 f"block on this device; got P={P}, blk_b={blk_b}")
 
 
-def kernel_attributes() -> dict:
+def kernel_attributes(device=None) -> dict:
     """The compiled sweep kernel's ``max_threads`` per block and
-    ``num_regs`` per thread on the current device."""
+    ``num_regs`` per thread on ``device`` (default: the current one)."""
     fn = _build.function("cgra_sweep", "cgra_sweep_attributes",
                          [ctypes.POINTER(ctypes.c_int32)] * 2)
     max_threads, num_regs = ctypes.c_int32(), ctypes.c_int32()
-    _build.check(fn(ctypes.byref(max_threads), ctypes.byref(num_regs)),
-                 "cgra_sweep_attributes")
+    with torch.cuda.device(device):
+        _build.check(fn(ctypes.byref(max_threads), ctypes.byref(num_regs)),
+                     "cgra_sweep_attributes")
     return {"max_threads": max_threads.value, "num_regs": num_regs.value}
 
 
-def _launch_chunks(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
-                   st: LaneState, *, rows: int, cols: int, max_steps: int,
-                   chunk_steps: Optional[int], blk_b: int) -> None:
+Shard = Tuple[SweepTables, HwConfig, torch.Tensor, LaneState]
+
+
+def _chunk_launcher(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
+                    st: LaneState, *, rows: int, cols: int, max_steps: int,
+                    k_steps: int, blk_b: int):
+    """``launch(t0)``: one chunk of this shard's lanes on its device's
+    current stream, with that device made current (the C entry launches
+    on the current device)."""
     fn = _build.function("cgra_sweep", "cgra_sweep_chunk", _ARGTYPES)
+    dev = st.mem.device
     B, M = st.mem.shape
     hw_i = torch.stack([getattr(hw, f).to(torch.int32)
                         for f in HW_INT_FIELDS], dim=1).contiguous()
     hw_f = hw.smul_power_scale.to(torch.float32).contiguous()
     gidx = gidx.to(torch.int32).contiguous()
-    stream = torch.cuda.current_stream(st.mem.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: t.data_ptr()
-    K = chunk_size(chunk_steps, max_steps)
-    t0 = 0
-    while t0 < max_steps and not bool(st.done.all()):
-        _build.check(fn(
-            ptr(tables.tab), tables.tab.shape[0], tables.t_max,
-            ptr(tables.plen), tables.plen.shape[0], ptr(tables.p_dec),
-            ptr(tables.p_act), ptr(tables.e_src), tables.p_idle,
-            tables.e_sw_op, tables.e_sw_mux, tables.mulzero, ptr(hw_i),
-            ptr(hw_f), ptr(gidx), ptr(st.mem), M, *map(ptr, st[1:]),
-            B, rows, cols, t0, K, max_steps, blk_b, stream),
-            "cgra_sweep_chunk")
+
+    def launch(t0: int) -> None:
+        with torch.cuda.device(dev):
+            _build.check(fn(
+                ptr(tables.tab), tables.tab.shape[0], tables.t_max,
+                ptr(tables.plen), tables.plen.shape[0], ptr(tables.p_dec),
+                ptr(tables.p_act), ptr(tables.e_src), tables.p_idle,
+                tables.e_sw_op, tables.e_sw_mux, tables.mulzero, ptr(hw_i),
+                ptr(hw_f), ptr(gidx), ptr(st.mem), M, *map(ptr, st[1:]),
+                B, rows, cols, t0, k_steps, max_steps, blk_b, stream),
+                "cgra_sweep_chunk")
         sweep_engine.launches += 1
+        sweep_engine.device_launches[str(dev)] += 1
+
+    return launch
+
+
+def _launch_rounds(shards: Sequence[Shard], *, rows: int, cols: int,
+                   max_steps: int, chunk_steps: Optional[int],
+                   blk_b: int) -> List[int]:
+    """Chunks of every shard in rounds: a round launches one chunk on
+    each unfinished shard, then reads the shards' done flags, so no
+    shard's host sync sits between another shard's launches.  With one
+    shard this is the plain chunk loop.  Returns launches per shard."""
+    K = chunk_size(chunk_steps, max_steps)
+    launchers = [_chunk_launcher(*sh, rows=rows, cols=cols,
+                                 max_steps=max_steps, k_steps=K, blk_b=blk_b)
+                 for sh in shards]
+    counts = [0] * len(shards)
+    live = list(range(len(shards)))
+    t0 = 0
+    while t0 < max_steps:
+        live = [i for i in live if not bool(shards[i][3].done.all())]
+        if not live:
+            break
+        for i in live:
+            launchers[i](t0)
+            counts[i] += 1
         t0 += K
+    return counts
+
+
+def sweep_shards(shards: Sequence[Shard], *, rows: int, cols: int,
+                 max_steps: int, chunk_steps: Optional[int] = 64,
+                 blk_b: int = 32) -> List[int]:
+    """Run every lane of several independent shards ``(tables, hw, gidx,
+    state)``, each on the device its state lies on; states are updated
+    in place.  CUDA shards run their chunks in rounds across shards (see
+    ``_launch_rounds``); CPU shards run the plain version one after
+    another.  Returns the kernel launches per shard (0 for a CPU
+    shard)."""
+    for sh in shards:
+        _check(*sh, rows, cols, blk_b)
+    kw = dict(rows=rows, cols=cols, max_steps=max_steps,
+              chunk_steps=chunk_steps)
+    kinds = {sh[3].mem.device.type for sh in shards}
+    if kinds == {"cuda"}:
+        return _launch_rounds(shards, blk_b=blk_b, **kw)
+    if kinds == {"cpu"}:
+        for sh in shards:
+            sweep_ref(*sh, **kw)
+        return [0] * len(shards)
+    raise ValueError(f"sweep_engine: unsupported device mix {sorted(kinds)}")
 
 
 def sweep_engine(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
@@ -117,15 +179,9 @@ def sweep_engine(tables: SweepTables, hw: HwConfig, gidx: torch.Tensor,
     ``hw`` holds one configuration per lane ((B,) fields), ``gidx`` each
     lane's program.  ``blk_b`` is the number of lanes per CUDA block;
     neither it nor ``chunk_steps`` changes a result."""
-    _check(tables, hw, gidx, st, rows, cols, blk_b)
-    kw = dict(rows=rows, cols=cols, max_steps=max_steps,
-              chunk_steps=chunk_steps)
-    if st.mem.device.type == "cuda":
-        _launch_chunks(tables, hw, gidx, st, blk_b=blk_b, **kw)
-    elif st.mem.device.type == "cpu":
-        sweep_ref(tables, hw, gidx, st, **kw)
-    else:
-        raise ValueError(f"sweep_engine: unsupported device {st.mem.device}")
+    sweep_shards([(tables, hw, gidx, st)], rows=rows, cols=cols,
+                 max_steps=max_steps, chunk_steps=chunk_steps, blk_b=blk_b)
 
 
 sweep_engine.launches = 0
+sweep_engine.device_launches = collections.Counter()

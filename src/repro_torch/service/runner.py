@@ -27,7 +27,10 @@ This runner makes large sweeps crash-safe:
   * **Fleet wiring**: per-unit workers beat the ``HeartbeatBus``; a
     confirmed ``FailureDetector`` failure (or a persistent straggler's
     "replace" action) evicts the node and records a re-plan event --
-    completed units stay checkpointed, nothing re-runs.
+    completed units stay checkpointed, nothing re-runs.  With a
+    ``mesh`` every node is a mesh entry and the re-plan is elastic: the
+    remaining units run on a smaller mesh of the survivors
+    (``runtime.plan_downscale``), recorded in the report.
     ``StragglerDetector`` step times feed a unit-size rebalancing
     suggestion for the next campaign.
   * **Fault injection**: all of the above is exercised deterministically
@@ -60,6 +63,8 @@ from ..core.autotune import AUTO, ShapeClass, default_cache
 from ..core.characterization import Profile
 from ..core.dse import GridPlan, SweepResult
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import Mesh, mesh_device
+from ..runtime import plan_downscale
 from ..runtime.faults import BackendFault, FaultInjector
 from .monitor import FleetMonitor
 
@@ -165,7 +170,14 @@ class ResumableSweepRunner:
     the device and checkpoints its compacted ``(G, K)`` candidate set,
     and ``stitch`` merges the unit fronts (``merge_reduced``) into the
     campaign's ``ReducedResult``.  The reduction spec is part of the
-    campaign fingerprint."""
+    campaign fingerprint.
+
+    With ``mesh`` (a ``parallel.Mesh``) each unit's lanes split over the
+    mesh's entries (``dse.make_grid_fn(mesh=)``), the plan lives on the
+    mesh's first device, and a unit is padded up to a multiple of the
+    mesh's initial entry count; checkpoints stay in real lane ranges.
+    The monitor's nodes (default ``dev0..devN-1``) map to the mesh's
+    entries in flat order."""
 
     def __init__(self, program=None, profile: Profile = None,
                  hw_configs=None, mem_images=None, *,
@@ -177,6 +189,7 @@ class ResumableSweepRunner:
                  blk_b: Union[int, str] = AUTO,
                  reduce: Optional[_pareto.Reduction] = None,
                  device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None,
                  retry: Optional[RetryPolicy] = None,
                  injector: Optional[FaultInjector] = None,
                  monitor: Optional[FleetMonitor] = None,
@@ -194,15 +207,25 @@ class ResumableSweepRunner:
             programs = list(mappings.programs)
         self.mappings = mappings
         if plan is None:
+            if mesh is not None:
+                device = mesh_device(mesh, device)
             plan = dse.plan_grid(program, hw_configs, mem_images,
                                  programs=programs, device=device)
         elif device is not None:
             raise TypeError("ResumableSweepRunner: a plan runs where its "
                             "images are; pass plan= OR device=, not both")
+        elif mesh is not None:
+            mesh_device(mesh, plan.images.device)
         self.plan = plan
         self.device = plan.images.device
         self.profile = profile
+        self.mesh = mesh
+        self._initial_ndev = 1 if mesh is None else mesh.devices.size
         self.unit_size = max(1, unit_size)
+        # the unit's lanes split evenly over the initial mesh; a re-plan
+        # keeps a width that divides this
+        self._padded_unit = -(-self.unit_size // self._initial_ndev) \
+            * self._initial_ndev
         self.max_steps = max_steps
         self.mem_size = mem_size
         # AUTO knobs resolve through the autotune cache with the
@@ -214,7 +237,8 @@ class ResumableSweepRunner:
         lanes_per_prog = max(1, plan.n_lanes // max(G, 1))
         cfg = default_cache().resolve(
             ShapeClass(G=G, t_max=plan.batch.t_max, H=lanes_per_prog, D=1,
-                       device=self.device.type),
+                       device=self.device.type,
+                       n_devices=self._initial_ndev),
             blk_b=blk_b, chunk_steps=chunk_steps, max_buckets=1)
         self.chunk_steps = cfg.chunk_steps
         self.blk_b = cfg.blk_b
@@ -231,12 +255,15 @@ class ResumableSweepRunner:
         self.B = plan.n_lanes
         self.n_units = -(-self.B // self.unit_size)
         self._chain = backend_chain(self.device)
-        self._fn: Optional[Callable] = None
+        self._fn: Optional[Callable] = None     # for the current mesh
         self._results: Dict[int, Dict[str, np.ndarray]] = {}
         self._skipped: Set[int] = set()
         self._pending_replace: Set[str] = set()
 
-        self.monitor = monitor or FleetMonitor(["dev0"])
+        self.monitor = monitor or FleetMonitor(
+            [f"dev{i}" for i in range(self._initial_ndev)])
+        self._node_device = ({} if mesh is None else
+                             dict(zip(self.monitor.nodes, mesh.flat())))
         self.report = RunnerReport(units_total=self.n_units)
         t0 = time.perf_counter()
         self.fingerprint = self._fingerprint()
@@ -333,12 +360,12 @@ class ResumableSweepRunner:
         row carries each lane's flat grid index, -1 on the pad lanes so
         the reducer masks them."""
         lo, hi = self._unit_range(k)
-        sel = np.minimum(np.arange(lo, lo + self.unit_size), self.B - 1)
+        sel = np.minimum(np.arange(lo, lo + self._padded_unit), self.B - 1)
         sel_d = torch.as_tensor(sel, device=self.device)
         hw = self.plan.hw_grid.map(lambda x: x[sel_d])
         lane = None
         if self.reduce is not None:
-            n = np.arange(self.unit_size)
+            n = np.arange(self._padded_unit)
             lane = np.where(n < hi - lo, lo + n, -1).astype(np.int32)
         return self.plan.img_idx[sel], hw, self.plan.prog_idx[sel], lane
 
@@ -347,13 +374,23 @@ class ResumableSweepRunner:
             self._fn = dse.make_grid_fn(
                 self.plan, self.profile, max_steps=self.max_steps,
                 mem_size=self.mem_size, chunk_steps=self.chunk_steps,
-                blk_b=self.blk_b, reduce=self.reduce)
+                blk_b=self.blk_b, reduce=self.reduce, mesh=self.mesh)
         return self._fn
+
+    def _synchronize(self) -> None:
+        """Wait for every card the current mesh (or the plan) runs on."""
+        if self.device.type == "cuda":
+            for d in (self.mesh.distinct() if self.mesh is not None
+                      else [self.device]):
+                torch.cuda.synchronize(d)
 
     # -- fleet re-plan ------------------------------------------------------
     def _replan(self, k: int, failed: Set[str]):
         """Drop confirmed-failed workers and continue the remaining units;
-        completed units stay checkpointed."""
+        completed units stay checkpointed.  With a mesh the remaining
+        units run on a mesh of the survivors: the widest power of two
+        that ``plan_downscale`` allows and that divides the padded
+        unit."""
         for n in sorted(failed):
             self.monitor.evict(n)
         self._pending_replace -= failed
@@ -362,8 +399,27 @@ class ResumableSweepRunner:
             raise SweepUnitError(
                 f"unit {k}: every worker is confirmed failed; "
                 f"cannot re-plan the campaign")
-        self.report.replans.append({"unit": k, "dropped": sorted(failed),
-                                    "n_alive": len(alive)})
+        event = {"unit": k, "dropped": sorted(failed),
+                 "n_alive": len(alive)}
+        if self.mesh is not None:
+            plan = plan_downscale(len(alive), model=1,
+                                  data=self._initial_ndev, pods=1)
+            nd = 1
+            while (nd * 2 <= plan.n_devices
+                   and self._padded_unit % (nd * 2) == 0):
+                nd *= 2
+            devices = [self._node_device[n] for n in alive
+                       if n in self._node_device][:nd]
+            if len(devices) < nd:
+                raise SweepUnitError(
+                    f"unit {k}: {len(devices)} surviving nodes map to mesh "
+                    f"entries; the re-plan needs {nd}")
+            self.mesh = Mesh(devices, ("data",))
+            self._fn = None               # built once for the new mesh
+            event["elastic_plan"] = {
+                "mesh_shape": list(plan.mesh_shape), "n_devices": nd,
+                "grad_accum_factor": plan.grad_accum_factor}
+        self.report.replans.append(event)
 
     # -- execution ----------------------------------------------------------
     def _execute(self, k: int):
@@ -383,8 +439,7 @@ class ResumableSweepRunner:
                 fn = self._grid_fn()
                 res = fn(idx, hw, gi) if lane is None \
                     else fn(idx, hw, gi, lane)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._synchronize()
                 secs = self.clock() - t0
                 if self.injector is not None:
                     secs += self.injector.extra_seconds(k)
@@ -448,6 +503,9 @@ class ResumableSweepRunner:
 
         self._results[k] = res_np
         if self.mgr is not None:
+            # the previous unit's async save ends here (save() would join
+            # it next), so the kill point below loses this unit alone
+            self.mgr.wait()
             if self.injector is not None:
                 self.injector.on_commit(k)     # kill point: pre-durability
             self.mgr.save(res_np, k, extra={

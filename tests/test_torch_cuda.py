@@ -204,6 +204,39 @@ def test_runner_on_gpu_killed_and_resumed_equals_host(gpu, prof, tmp_path):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
+def test_sweep_on_four_shard_mesh_equals_unsharded(gpu, prof):
+    """Four shards on one card (a mesh repeating the device): unreduced
+    and TopK, bit for bit the unsharded sweep on the card; every shard
+    launches the kernel, all on the shards' device."""
+    from repro_torch.analysis import pareto
+    from repro_torch.launch.mesh import make_debug_mesh
+    progs, hws, images = _grid()
+    mesh = make_debug_mesh(4, device=gpu)
+    kw = dict(programs=progs, profile=prof, hw_configs=hws,
+              mem_images=images, max_steps=2048, chunk_steps=64, blk_b=32,
+              max_buckets=4)
+    want = dse.sweep(device=gpu, **kw)
+    sweep_engine.device_launches.clear()
+    before = sweep_engine.launches
+    got = dse.sweep(mesh=mesh, **kw)
+    dev = str(mesh.devices.flat[0])
+    assert sweep_engine.launches - before == \
+        sweep_engine.device_launches[dev] > 0
+    for f in dse.SweepResult._fields:
+        assert getattr(got, f).device == mesh.devices.flat[0], f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    spec = pareto.TopK("edp", 4)
+    red = dse.sweep(mesh=mesh, reduce=spec, **kw)
+    ref = dse.sweep(device=gpu, reduce=spec, **kw)
+    for f in pareto.REDUCED_FIELDS:
+        assert getattr(red, f).tobytes() == getattr(ref, f).tobytes(), f
+    plan = dse.plan_grid(programs=progs, hw_configs=hws, mem_images=images,
+                         device=gpu)
+    grid = dse.make_grid_fn(plan, prof, max_steps=2048, mesh=mesh)
+    grid(plan.img_idx, plan.hw_grid, plan.prog_idx)
+    assert len(grid.shard_launches) == 4 and min(grid.shard_launches) > 0
+
+
 def test_auto_sweep_on_gpu_resolves_from_the_cache(gpu, prof, tmp_path,
                                                    monkeypatch):
     """AUTO knobs on the card come from a cache entry for the card's
