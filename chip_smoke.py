@@ -88,8 +88,25 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    to 6 layers (one group), f32, the same weights on both; prompts of
    256 and 200 tokens spliced into two slots, then 8 teacher-forced
    decode steps; logits at every step at rtol = atol = 1e-3;
-9. one {"kernels": [...]} line with times, bounds and launch counts;
-10. the last line {"ok": true, "device": {...}}.
+9. training zamba2-2.7b: (a) both backward kernels against their plain
+   backward on the card, gradient for gradient (flash at the training
+   shape B=2, S=4096, H=32, hd=80 bf16 causal within 2e-2 and two bf16
+   steps; f32 hd 16 and 128, ragged S=1000, causal=False, window=512 and
+   GQA 32/8 at 1e-4, TF32 off; SSD at (128, 64, 80, 64, 64) and the
+   card tests' ragged shapes at 1e-4), timed beside their bounds and
+   scaled_dot_product_attention's backward; (b) the main path:
+   launch.train.main at full width and depth (54 layers, d_model 2560,
+   seeded weights, bf16 activations, f32 parameters and moments,
+   remat "full"), 4 AdamW steps of 2 x 4096 tokens: finite loss, nll
+   and grad_norm, every parameter changed, ms a step, tokens/s, peak
+   memory, and counted launches a step (flash forward 9 x 2, its
+   backward 9 x 2 kernels, SSD forward 54 x 2, its backward 54 x 2);
+   (c) 2 steps of full width cut to 6 layers, f32, card against host
+   with the same weights: loss, grad_norm, every parameter at 1e-3;
+   (d) the smoke trainer killed at step 4 (exit 42) and resumed on the
+   card: steps 5-8 equal an uninterrupted run at 1e-5;
+10. one {"kernels": [...]} line with times, bounds and launch counts;
+11. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1047,8 +1064,8 @@ def flash_phase(dev) -> dict:
     """Phase 5: the flash-attention kernel against its plain version."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
-    from repro_torch.kernels.flash_attention.ops import _expand_kv, attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1064,8 +1081,8 @@ def flash_phase(dev) -> dict:
 
     def plain(q, k, v, causal, window):
         H = q.shape[2]
-        return attention_ref(q.transpose(1, 2), _expand_kv(k, H),
-                             _expand_kv(v, H), causal=causal,
+        return attention_ref(q.transpose(1, 2), expand_kv(k, H),
+                             expand_kv(v, H), causal=causal,
                              window=window).transpose(1, 2)
 
     cases = [  # (name, B, S, H, KV, hd, dtype, causal, window)
@@ -1337,6 +1354,365 @@ def depth6_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4     # the main training path
+
+
+def flash_bwd_bound(B, S, H, hd, dtype_bytes, ops_per_s):
+    """(least ms, what sets it) of the causal flash backward: q, k, v, dO
+    and lse read once, dQ, dK, dV written once; the five products a pair
+    needs (S recomputed, dP, dV, dQ, dK), 2 hd operations each, over the
+    causal band."""
+    pairs = S * (S + 1) // 2
+    n_bytes = 7 * B * S * H * hd * dtype_bytes + 4 * B * H * S
+    return bound(n_bytes, 5 * 2 * hd * B * H * pairs, ops_per_s)
+
+
+def ssd_bwd_bound(G, L, H, P, N):
+    """(least ms, what sets it) of the intra-chunk SSD backward: x, dy,
+    dt, cum, B, C read once, dx, ddt, dcum, dB, dC written once; over
+    the pairs j <= i: C.B^T once a chunk, ds and dx (2P each) and ~9
+    elementwise operations a head, dC and dB (2N each) once a chunk."""
+    tri = L * (L + 1) // 2
+    n_bytes = 4 * (3 * G * L * H * P + 4 * G * L * H + 4 * G * L * N)
+    n_ops = G * tri * (2 * N + 4 * N) + G * H * tri * (4 * P + 9)
+    return bound(n_bytes, n_ops, F32_OPS_PER_S)
+
+
+def train_kernels_phase(dev) -> list:
+    """Phase 9a: both backward kernels against their plain backward on
+    the card, gradient for gradient, timed beside their bounds (and the
+    flash one beside scaled_dot_product_attention's backward)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from torch.nn.functional import softplus
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.mamba2_scan import ops as so
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    cases = [  # (name, B, S, H, KV, hd, dtype, causal, window)
+        ("main bf16 causal", TRAIN_B, TRAIN_S, 32, 32, 80, torch.bfloat16,
+         True, None),
+        ("f32 hd16", 1, 2048, 32, 32, 16, torch.float32, True, None),
+        ("f32 hd128", 1, 2048, 32, 32, 128, torch.float32, True, None),
+        ("ragged S=1000", 1, 1000, 32, 32, 80, torch.float32, True, None),
+        ("causal=False", 1, 2048, 32, 32, 80, torch.float32, False, None),
+        ("window=512", 1, 2048, 32, 32, 80, torch.float32, True, 512),
+        ("GQA 32/8", 1, 2048, 32, 8, 80, torch.float32, True, None),
+    ]
+    flash_err = None
+    for name, B, S, H, KV, hd, dtype, causal, window in cases:
+        q, dout = randn(B, S, H, hd, dtype=dtype), randn(B, S, H, hd,
+                                                          dtype=dtype)
+        k, v = randn(B, S, KV, hd, dtype=dtype), randn(B, S, KV, hd,
+                                                       dtype=dtype)
+        _, lse = fo._launch(q, k, v, causal, window, lse=True)
+        got = fo.attention_bwd(q, k, v, dout, lse, causal=causal,
+                               window=window)
+        want = attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        errs = []
+        for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((a.float() - w.float()).abs().max())
+            errs.append(err)
+            check(bool(torch.allclose(a.float(), w.float(), rtol=tol,
+                                      atol=tol)),
+                  f"flash backward {name} {gname}: max abs err {err:.3g} "
+                  f"over {tol}")
+            if dtype == torch.bfloat16:
+                check(bool(torch.allclose(a.float(), w.float(),
+                                          rtol=2.0 ** -6, atol=1e-5)),
+                      f"flash backward {name} {gname}: an element is off "
+                      f"by more than two bf16 steps of itself")
+        print(f"[train-kernels] flash backward {name} (B={B}, S={S}, H={H}, "
+              f"KV={KV}, hd={hd}, {str(dtype)[6:]}, causal={causal}, "
+              f"window={window}): max abs err dq/dk/dv "
+              f"{[float(f'{e:.3g}') for e in errs]} within {tol}"
+              + (" and two bf16 steps" if dtype == torch.bfloat16 else ""))
+        flash_err = max(errs) if flash_err is None else flash_err
+        if name.startswith("main"):
+            ms = cuda_ms(lambda: fo._launch_bwd(q, k, v, dout, lse, causal,
+                                                window), reps=5)
+            plain_ms = cuda_ms(lambda: attention_bwd_ref(
+                q, k, v, dout, causal=causal, window=window), reps=2)
+            # the yardstick: one fused backward of PyTorch's (not its
+            # materialising math backend), on contiguous (B, H, S, hd)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            do_t = dout.transpose(1, 2).contiguous()
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                out = sdpa(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), do_t, retain_graph=True), reps=5)
+            b_ms, b_by = flash_bwd_bound(B, S, H, hd, 2, BF16_OPS_PER_S)
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, shape=[B, S, H, hd])
+            print(f"[train-kernels] flash backward main shape: kernels "
+                  f"{ms:.4f} ms (2 launches), plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention backward {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the bound")
+            del out, qt, kt, vt
+        del q, k, v, dout, lse, got, want
+        torch.cuda.empty_cache()
+
+    ssd_err, ssd_main = None, None
+    for G, L, H, P, N in [(128, 64, 80, 64, 64), (6, 64, 8, 64, 64),
+                          (3, 40, 5, 16, 16), (2, 64, 3, 50, 70),
+                          (1, 64, 80, 64, 64), (7, 64, 13, 64, 64),
+                          (9, 1, 4, 64, 64), (4, 17, 6, 32, 16),
+                          (3, 64, 5, 128, 128), (3, 48, 6, 64, 70),
+                          (2, 33, 4, 7, 5)]:
+        x, dy = randn(G, L, H, P), randn(G, L, H, P)
+        dt = softplus(randn(G, L, H))
+        cum = torch.cumsum(-softplus(randn(G, L, H)), dim=1)
+        Bm, Cm = randn(G, L, N), randn(G, L, N)
+        got = so.ssd_intra_chunk_bwd(x, dt, cum, Bm, Cm, dy)
+        want = intra_chunk_bwd_ref(x, dt, cum, Bm, Cm, dy)
+        torch.cuda.synchronize()
+        errs = []
+        for gname, a, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, want):
+            err = float((a - w).abs().max())
+            errs.append(err)
+            check(bool(torch.allclose(a, w, rtol=1e-4, atol=1e-4)),
+                  f"SSD backward (G={G}, L={L}, H={H}, P={P}, N={N}) "
+                  f"{gname}: max abs err {err:.3g} over 1e-4")
+        print(f"[train-kernels] SSD backward (G={G}, L={L}, H={H}, P={P}, "
+              f"N={N}): max abs err dx/ddt/dcum/dB/dC "
+              f"{[float(f'{e:.3g}') for e in errs]} within rtol = atol = "
+              f"1e-4")
+        if ssd_main is None:
+            ssd_err = max(errs)
+            ms = cuda_ms(lambda: so._launch_bwd(x, dt, cum, Bm, Cm, dy),
+                         reps=10)
+            plain_ms = cuda_ms(lambda: intra_chunk_bwd_ref(
+                x, dt, cum, Bm, Cm, dy), reps=3)
+            b_ms, b_by = ssd_bwd_bound(G, L, H, P, N)
+            ssd_main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, shape=[G, L, H, P, N])
+            print(f"[train-kernels] SSD backward main shape: kernels "
+                  f"{ms:.4f} ms (2 launches), plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the bound")
+        del x, dy, dt, cum, Bm, Cm, got, want
+    torch.cuda.empty_cache()
+    return [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
+         "launches": None, "max_abs_err": flash_err, "ms": main["ms"],
+         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+         "shape": main["shape"], "dtype": "bfloat16", "causal": True,
+         "kernels_a_call": 2},
+        {"name": "ssd_intra_chunk_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/mamba2_scan/csrc/"
+                   "ssd_intra_chunk_bwd.cu",
+         "replaces": "src/repro/kernels/mamba2_scan/kernel.py:56",
+         "launches": None, "max_abs_err": ssd_err, "ms": ssd_main["ms"],
+         "plain_ms": ssd_main["plain_ms"], "bound_ms": ssd_main["bound_ms"],
+         "bound_by": ssd_main["bound_by"], "library_ms": None,
+         "shape": ssd_main["shape"], "kernels_a_call": 2},
+    ]
+
+
+def _train_launches():
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.mamba2_scan import ops as so
+    return {"flash_attention": fo.attention.launches,
+            "flash_attention_bwd": fo.attention_bwd.launches,
+            "ssd_intra_chunk": so.ssd_intra_chunk.launches,
+            "ssd_intra_chunk_bwd": so.ssd_intra_chunk_bwd.launches}
+
+
+def _zero_launches():
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.mamba2_scan import ops as so
+    fo.attention.launches = fo.attention_bwd.launches = 0
+    so.ssd_intra_chunk.launches = so.ssd_intra_chunk_bwd.launches = 0
+
+
+def train_phase(dev, work: Path) -> dict:
+    """Phase 9b: the training main path, ``launch.train.main`` on
+    zamba2-2.7b at full width and depth, seeded weights, bf16
+    activations, f32 parameters and moments, remat "full", TRAIN_STEPS
+    AdamW steps of TRAIN_B x TRAIN_S tokens; counted launches a step."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import make_model
+
+    cfg = get_config(ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{ARCH}: remat {cfg.remat}, dtype {cfg.dtype}")
+    argv = ["--arch", ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--ckpt-every",
+            "0", "--log-every", "1", "--ckpt-dir", str(work / "train_full")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    history, state = train.main(argv, return_state=True)
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    G = cfg.n_layers // cfg.shared_attn_every
+    want = {"flash_attention": G * 2, "flash_attention_bwd": G * 2,
+            "ssd_intra_chunk": cfg.n_layers * 2,
+            "ssd_intra_chunk_bwd": cfg.n_layers * 2}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"[train] launches in {TRAIN_STEPS} steps {launches}; a step "
+          f"{per_step} (expected {want}: {G} shared-block applications "
+          f"and {cfg.n_layers} Mamba2 layers, each forward run twice under "
+          f"remat, two kernels a backward call)")
+    check(per_step == want, f"training launches a step {per_step}, "
+          f"expected {want}")
+    check(len(history) == TRAIN_STEPS, f"{len(history)} steps recorded")
+    for h in history:
+        check(all(math.isfinite(h[k]) for k in ("loss", "nll", "grad_norm")),
+              f"step {h['step']}: non-finite loss, nll or grad_norm {h}")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    fresh = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    unchanged = [n for (n, a), b in zip(state.params.named_parameters(),
+                                        fresh.parameters())
+                 if torch.equal(a.detach(), b)]
+    check(not unchanged, f"parameters unchanged by training: {unchanged[:4]}")
+    del fresh, state
+    torch.cuda.empty_cache()
+    steady = sorted(h["time_s"] for h in history[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    for h in history:
+        print(f"[train] step {h['step']}: loss {h['loss']:.6f} nll "
+              f"{h['nll']:.6f} grad_norm {h['grad_norm']:.6f} lr "
+              f"{h['lr']:.3g} {h['time_s'] * 1e3:.1f} ms "
+              f"({tokens / h['time_s']:.1f} tokens/s)")
+    check(peak < 75 * 2 ** 30, f"peak memory {peak / 2**30:.2f} GiB over "
+          f"75 GiB at batch {TRAIN_B}")
+    print(f"[train] {ARCH} full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {n_params} parameters), batch {TRAIN_B} "
+          f"x {TRAIN_S} tokens, remat {cfg.remat}, bf16 activations, f32 "
+          f"parameters and moments: {TRAIN_STEPS} steps in {wall:.1f} s, "
+          f"every parameter changed; median step (2-{TRAIN_STEPS}) "
+          f"{step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_s": tokens / step_s, "peak_gib": peak / 2 ** 30}
+
+
+def train_depth6_phase(dev) -> None:
+    """Phase 9c: two training steps on the card against the same on the
+    host: full width cut to 6 layers, f32, the same weights, batch 1 x
+    256 tokens; loss, grad_norm and every parameter at 1e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.train_step import TrainState, param_tree
+
+    cfg = get_config(ARCH).replace(n_layers=6, dtype="float32")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0, schedule="constant")
+    runs = []
+    p_dev = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(3))
+    for model, params in ((make_model(cfg, device=dev), p_dev),
+                          (make_model(cfg, device="cpu"),
+                           copy.deepcopy(p_dev).to("cpu"))):
+        params.requires_grad_(True)
+        runs.append([model, TrainState(params, adamw_init(param_tree(params)),
+                                       None)])
+    start = {n: t.detach().cpu().clone()
+             for n, t in runs[1][1].params.named_parameters()}
+    rng = np.random.default_rng(3)
+    t_cpu = 0.0
+    for step in range(2):
+        toks = rng.integers(0, cfg.vocab, (1, 257))
+        mets = []
+        for run in runs:
+            model, st = run
+            batch = {"tokens": torch.as_tensor(toks[:, :-1],
+                                               device=model.device),
+                     "labels": torch.as_tensor(toks[:, 1:],
+                                               device=model.device)}
+            t = time.perf_counter()
+            run[1], met = make_train_step(model, opt)(st, batch)
+            if model.device.type == "cpu":
+                t_cpu += time.perf_counter() - t
+            mets.append({k: float(v) for k, v in met.items()})
+        for k in ("loss", "grad_norm"):
+            check(abs(mets[0][k] - mets[1][k]) <= 1e-3 + 1e-3 * abs(
+                mets[1][k]), f"6-layer training step {step + 1}: {k} card "
+                f"{mets[0][k]:.6f} host {mets[1][k]:.6f} (rtol = atol = "
+                f"1e-3)")
+        print(f"[train-depth6] step {step + 1}: loss card {mets[0]['loss']:.6f}"
+              f" host {mets[1]['loss']:.6f}, grad_norm card "
+              f"{mets[0]['grad_norm']:.6f} host {mets[1]['grad_norm']:.6f}")
+    worst, num, den = 0.0, 0.0, 0.0
+    for (n, a), b in zip(runs[0][1].params.named_parameters(),
+                         runs[1][1].params.parameters()):
+        a, b = a.detach().cpu(), b.detach()
+        worst = max(worst, float((a - b).abs().max()))
+        check(bool(torch.allclose(a, b, rtol=1e-3, atol=1e-3)),
+              f"6-layer training: parameter {n} card and host differ by "
+              f"{float((a - b).abs().max()):.3g} (rtol = atol = 1e-3)")
+        num += float(((a - start[n]) - (b - start[n])).norm() ** 2)
+        den += float((b - start[n]).norm() ** 2)
+    print(f"[train-depth6] {ARCH} at full width, 6 layers, f32, 2 AdamW "
+          f"steps of 256 tokens: every parameter within rtol = atol = 1e-3 "
+          f"of the host's (max abs diff {worst:.3g}); |update card - "
+          f"update host| / |update host| = {(num / den) ** 0.5:.3g}; host "
+          f"steps {t_cpu:.1f} s")
+    del runs, p_dev
+    torch.cuda.empty_cache()
+
+
+def train_restart_phase(dev, work: Path) -> None:
+    """Phase 9d: the trainer killed at step 4 (exit 42) and resumed from
+    its checkpoint on the card replays steps 5-8 of an uninterrupted run
+    at 1e-5 (the smoke configuration)."""
+    from repro_torch.launch import train
+
+    base = ["--arch", ARCH, "--smoke", "--device", "cuda", "--steps", "8",
+            "--batch", "4", "--seq", "64", "--ckpt-every", "4",
+            "--log-every", "100"]
+    whole = train.main(base + ["--ckpt-dir", str(work / "restart_a")])
+    code = None
+    try:
+        train.main(base + ["--ckpt-dir", str(work / "restart_b"),
+                           "--simulate-failure", "4"])
+    except SystemExit as e:
+        code = e.code
+    check(code == 42, f"--simulate-failure 4 exited {code}, not 42")
+    resumed = train.main(base + ["--ckpt-dir", str(work / "restart_b")])
+    check([h["step"] for h in resumed] == [5, 6, 7, 8],
+          f"the resumed run ran steps {[h['step'] for h in resumed]}")
+    by_step = {h["step"]: h["loss"] for h in whole}
+    for h in resumed:
+        want = by_step[h["step"]]
+        check(abs(h["loss"] - want) <= 1e-5 * abs(want),
+              f"resumed step {h['step']}: loss {h['loss']!r} against the "
+              f"uninterrupted {want!r} (rtol 1e-5)")
+    print(f"[train-restart] smoke {ARCH} on the card: killed after step 4 "
+          f"(exit 42), resumed from its checkpoint; steps 5-8 losses "
+          f"{[h['loss'] for h in resumed]} equal the uninterrupted run's "
+          f"{[by_step[s] for s in (5, 6, 7, 8)]} within rtol 1e-5")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1605,7 +1981,18 @@ def main() -> int:
     ssd_entry["launches"] = serve_stats["ssd_intra_chunk"]
     depth6_phase(dev)
 
-    # ---- 9. kernels line ----------------------------------------------------
+    # ---- 9. training: the backward kernels, the main path, card vs host,
+    # restart ------------------------------------------------------------------
+    bwd_entries = train_kernels_phase(dev)
+    trained = train_phase(dev, Path(work.name))
+    for entry in (flash_entry, ssd_entry, *bwd_entries):
+        entry["train_launches"] = trained["launches"][entry["name"]]
+    for entry in bwd_entries:
+        entry["launches"] = trained["launches"][entry["name"]]
+    train_depth6_phase(dev)
+    train_restart_phase(dev, Path(work.name))
+
+    # ---- 10. kernels line ---------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -1641,13 +2028,15 @@ def main() -> int:
          "main_path_device_ms": alu_dev_ms,
          "main_path_bound_ms": alu_step_bound,
          "analysis_launches": analysis["alu_dispatch"]},
-        flash_entry, ssd_entry,
+        flash_entry, ssd_entry, *bwd_entries,
     ]
     print(f"[summary] profile on the card {prof_cuda_t:.3f} s; main sweep "
           f"{wall:.3f} s for {B} design points; serving "
           f"{serve_stats['prefill_tok_s']:.1f} prefill tokens/s, "
           f"{serve_stats['decode_ms_per_step']:.3f} ms per decode step, "
-          f"{serve_stats['decode_tok_s']:.1f} decode tokens/s")
+          f"{serve_stats['decode_tok_s']:.1f} decode tokens/s; training "
+          f"{trained['step_ms']:.1f} ms a step, {trained['tokens_s']:.1f} "
+          f"tokens/s, peak {trained['peak_gib']:.3f} GiB")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,7 @@ KINDS = (("flash_attention", ("flash_fwd",)),
          ("other copies", ("copy", "memcpy", "memset")))
 
 
-def report(what: str, prof, wall_s: float) -> None:
+def report(what: str, prof, wall_s: float, kinds=KINDS) -> None:
     events = [e for e in prof.key_averages() if device_us(e) > 0]
     busy_us = sum(device_us(e) for e in events
                   if e.device_type is not None and "cuda" in
@@ -56,7 +56,7 @@ def report(what: str, prof, wall_s: float) -> None:
           f"{1 - busy_us / 1e3 / (wall_s * 1e3):.3f}")
     kernels = [e for e in events if "cuda" in str(e.device_type).lower()]
     seen = set()
-    for kind, keys in KINDS:
+    for kind, keys in kinds:
         sel = [e for e in kernels if e.key not in seen
                and any(k in e.key.lower() for k in keys)]
         seen.update(e.key for e in sel)

@@ -20,8 +20,11 @@ For comparison it also counts, on the same inputs, the elements where
 the plain PyTorch version on the card (TF32 off) leaves the same bound,
 and, for the SSD case of ``tests/test_torch_cuda.py`` that once failed,
 compares the kernel with the plain version on the host at that test's
-2e-5.  Prints one line per group and a JSON summary last; exits 1 if a
-kernel launch leaves its bound or repeats differently.  About a minute
+2e-5.  The backward kernels (``backward_groups``) are held to their
+float64 plain backward at the card checks' tolerances, and repeated,
+half of the repeats after every SM's shared memory is filled with NaN.
+Prints one line per group and a JSON summary last; exits 1 if a
+kernel launch leaves its bound or repeats differently.  A few minutes
 on an H100.
 """
 from __future__ import annotations
@@ -135,12 +138,111 @@ def ssd_inputs(gen, dev, G, L, H, P, N):
     return x, dt, cum, Bm, Cm
 
 
+def backward_groups(dev, rng, summary, faults) -> None:
+    """The backward kernels: every launch repeats bit for bit (half of
+    them after every SM's shared memory is filled with NaN) and lies
+    within rtol = atol = 1e-4 (bf16: 2e-2) of the float64 plain
+    backward; the float32 plain backward on the card is counted against
+    the same bound."""
+    from repro_torch.kernels.common import poison_shared_memory
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.mamba2_scan import ops as so
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
+
+    def outside(got, exact, tol):
+        return sum(int((~torch.isclose(g.double(), e, rtol=tol, atol=tol))
+                       .sum()) for g, e in zip(got, exact))
+
+    def group(name, cases, run, plain, repeats):
+        launches = bad = plain_bad = 0
+        for i, (args, tol) in enumerate(cases):
+            exact = plain(*(a.double() for a in args))
+            got = run(*args)
+            launches += 1
+            n_bad = outside(got, exact, tol)
+            for r in range(repeats):
+                if (i + r) % 2:
+                    poison_shared_memory(dev)
+                again = run(*args)
+                launches += 1
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    faults.append(f"{name} case {i}: a repeat differs")
+            plain_bad += outside(plain(*args), exact, tol)
+            if n_bad:
+                faults.append(f"{name} case {i}: {n_bad} elements outside")
+            bad += n_bad
+        torch.cuda.synchronize()
+        summary[name] = {"cases": len(cases), "launches": launches,
+                         "kernel_elements_outside": bad,
+                         "plain_on_card_elements_outside": plain_bad}
+        print(f"[{name}] {len(cases)} cases, {launches} launches, {bad} "
+              f"elements outside the bound; plain version on the card: "
+              f"{plain_bad} outside")
+
+    def ssd_case(G, L, H, P, N, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x, dt, cum, Bm, Cm = ssd_inputs(gen, dev, G, L, H, P, N)
+        dy = torch.randn(G, L, H, P, device=dev, generator=gen)
+        return (x, dt, cum, Bm, Cm, dy), 1e-4
+
+    ssd = [ssd_case(128, 64, 80, 64, 64, s) for s in range(4)]
+    ssd += [ssd_case(int(rng.integers(1, 9)), int(rng.integers(1, 65)),
+                     int(rng.integers(1, 33)), int(rng.integers(1, 129)),
+                     int(rng.integers(1, 129)), 3000 + i)
+            for i in range(200)]
+    group("ssd backward", ssd, so._launch_bwd, intra_chunk_bwd_ref,
+          repeats=2)
+
+    def flash_case(B, S, H, KV, hd, dtype, causal, window, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, do = (torch.randn(B, S, H, hd, device=dev, generator=gen)
+                 .to(dtype) for _ in "qo")
+        k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen)
+                .to(dtype) for _ in "kv")
+        lse = fo._launch(q, k, v, causal, window, lse=True)[1]
+        return (q, k, v, do, lse, causal, window), (
+            2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+    def flash_plain(q, k, v, do, lse, causal, window):
+        return attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash = [flash_case(1, 1024, 8, 8, 80, bf16, True, None, s)
+             for s in range(4)]
+    for i in range(120):
+        KV = int(rng.choice([1, 2, 4]))
+        causal = bool(rng.integers(0, 2))
+        flash.append(flash_case(
+            1, int(rng.integers(1, 300)), KV * int(rng.choice([1, 2])), KV,
+            int(rng.integers(1, 129)), bf16 if rng.random() < 0.3 else f32,
+            causal, int(rng.integers(1, 100)) if causal and rng.random() < 0.5
+            else None, 4000 + i))
+
+    group("flash backward", [((q, k, v, do, lse), tol) for
+                             (q, k, v, do, lse, c, w), tol in flash
+                             if c and w is None],
+          lambda q, k, v, do, lse: fo._launch_bwd(q, k, v, do, lse, True,
+                                                  None),
+          lambda q, k, v, do, lse: attention_bwd_ref(q, k, v, do),
+          repeats=2)
+    group("flash backward, other masks",
+          [((q, k, v, do, lse, torch.tensor([int(c), w or 0])), tol)
+           for (q, k, v, do, lse, c, w), tol in flash
+           if not (c and w is None)],
+          lambda q, k, v, do, lse, m: fo._launch_bwd(
+              q, k, v, do, lse, bool(m[0]), int(m[1]) or None),
+          lambda q, k, v, do, lse, m: attention_bwd_ref(
+              q, k, v, do, causal=bool(m[0]), window=int(m[1]) or None),
+          repeats=2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("stress_lm_kernels: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels.flash_attention.ops import _expand_kv, attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
     from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
     from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
 
@@ -240,8 +342,8 @@ def main() -> int:
                     n_bad += int(over_bound(o2, want, err, dtype).sum())
                     faults.append(f"flash {name} seed {seed}: a repeat "
                                   f"differs")
-            plain = attention_ref(q.transpose(1, 2), _expand_kv(k, H),
-                                  _expand_kv(v, H), causal=causal,
+            plain = attention_ref(q.transpose(1, 2), expand_kv(k, H),
+                                  expand_kv(v, H), causal=causal,
                                   window=window).transpose(1, 2)
             plain_bad += int(over_bound(plain, want, err, dtype).sum())
             if n_bad:
@@ -286,6 +388,8 @@ def main() -> int:
                       bf16 if rng.random() < 0.4 else f32, causal, window,
                       2000 + i))
     flash_group("random shapes", cases, repeats=1)
+
+    backward_groups(dev, rng, summary, faults)
 
     summary["seconds"] = time.perf_counter() - t0
     summary["faults"] = faults[:20]

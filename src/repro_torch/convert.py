@@ -2,7 +2,8 @@
 
 For the CGRA estimator the state two runs must share is the
 characterization profile, the programs and the hardware configurations;
-for the served model it is the weights.  Each function takes the
+for the model it is the weights, and for training also the optimizer's
+moments, its step and the error-feedback residual.  Each function takes the
 reference object's fields as plain numpy / Python values
 (``dataclasses.asdict`` of a ``Profile`` or ``Program``,
 ``HwConfig.as_dict()``, the parameter pytree as numpy arrays) and builds
@@ -85,3 +86,88 @@ def model_params_from_jax(cfg, params: Mapping,
         return state
     into.load_state_dict(state, strict=True)
     return into
+
+
+def model_params_to_jax(cfg, params: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``model_params_from_jax``: a state dict of
+    ``HybridLM`` (tensors on any device) -> the reference's parameter
+    pytree as nested dicts of float32 numpy arrays, mamba leaves stacked
+    (G, per, ...)."""
+    from .models.hybrid import groups
+
+    G, per = groups(cfg)
+    out: Dict[str, Any] = {}
+    mamba: Dict[str, list] = {}
+    for name, t in params.items():
+        a = t.detach().to("cpu", copy=True).float().numpy()
+        if name.startswith("layers."):
+            layer, leaf = name[7:].split(".", 1)
+            mamba.setdefault(leaf, [None] * (G * per))[int(layer)] = a
+        else:
+            _put(out, name, a)
+    for leaf, arrays in mamba.items():
+        _put(out, f"mamba.{leaf}",
+             np.stack(arrays).reshape((G, per) + arrays[0].shape))
+    return out
+
+
+def _put(tree: Dict, dotted: str, value) -> None:
+    *path, last = dotted.split(".")
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[last] = value
+
+
+def train_state_to_jax(cfg, state):
+    """A port ``TrainState`` -> the same named tuples (their fields are
+    the reference's) holding the reference's nested numpy trees: what
+    ``checkpoint.CheckpointManager`` saves, so that either package
+    resumes from the other's training checkpoints."""
+    from .train.compression import EFState
+    from .train.optim import OptState
+    from .train.train_step import TrainState, param_tree
+
+    return TrainState(
+        params=model_params_to_jax(cfg, param_tree(state.params)),
+        opt=OptState(step=np.asarray(state.opt.step.cpu(), np.int32),
+                     mu=model_params_to_jax(cfg, state.opt.mu),
+                     nu=model_params_to_jax(cfg, state.opt.nu)),
+        ef=(EFState(residual=model_params_to_jax(cfg, state.ef.residual))
+            if state.ef is not None else None))
+
+
+@torch.no_grad()
+def train_state_from_jax(cfg, state, into=None):
+    """The reference's ``TrainState`` (params, opt.step, opt.mu, opt.nu,
+    ef.residual as numpy, nested as the reference nests them) -> a port
+    ``TrainState``: written into ``into``'s tensors in place (on their
+    device) when given, else a new state on the CPU."""
+    from .models.model import make_model
+    from .train import optim
+    from .train.compression import EFState, ef_init
+    from .train.train_step import TrainState, param_tree
+
+    if into is None:
+        params = make_model(cfg, device="cpu").init(0).requires_grad_(True)
+        tree = param_tree(params)
+        into = TrainState(params=params, opt=optim.adamw_init(tree),
+                          ef=ef_init(tree) if state.ef is not None else None)
+    if (state.ef is None) != (into.ef is None):
+        raise ValueError("train_state_from_jax: error feedback is on in one "
+                         "state and off in the other")
+    pairs = [(param_tree(into.params), state.params),
+             (into.opt.mu, state.opt.mu), (into.opt.nu, state.opt.nu)]
+    if into.ef is not None:
+        pairs.append((into.ef.residual, state.ef.residual))
+    for dst, src in pairs:
+        flat = model_params_from_jax(cfg, src)
+        if set(flat) != set(dst):
+            raise ValueError(f"train_state_from_jax: leaves differ: "
+                             f"{sorted(set(flat) ^ set(dst))[:4]}")
+        for name, t in dst.items():
+            t.copy_(flat[name])
+    opt = optim.OptState(step=torch.tensor(
+        int(np.asarray(state.opt.step)), dtype=torch.int32), mu=into.opt.mu,
+        nu=into.opt.nu)
+    return TrainState(params=into.params, opt=opt,
+                      ef=EFState(into.ef.residual) if into.ef else None)

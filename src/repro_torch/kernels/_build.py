@@ -34,6 +34,11 @@ SOURCES: Dict[str, Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc"
     / "flash_attention.cu",
     "ssd_intra_chunk": _PKG / "mamba2_scan" / "csrc" / "ssd_intra_chunk.cu",
+    "flash_attention_bwd": _PKG / "flash_attention" / "csrc"
+    / "flash_attention_bwd.cu",
+    "ssd_intra_chunk_bwd": _PKG / "mamba2_scan" / "csrc"
+    / "ssd_intra_chunk_bwd.cu",
+    "smem_poison": _PKG / "common" / "csrc" / "smem_poison.cu",
 }
 # ptxas reports each kernel's registers, shared memory and spills; the
 # report is kept beside the library (``build_log``)
@@ -47,6 +52,9 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     + ["-I", str(_PKG / "cgra_step" / "csrc")],
     "flash_attention": _PTXAS_V + ["-lcuda"],
     "ssd_intra_chunk": _PTXAS_V + ["-lcuda"],
+    "flash_attention_bwd": _PTXAS_V,
+    "ssd_intra_chunk_bwd": _PTXAS_V,
+    "smem_poison": [],
 }
 _loaded: Dict[str, ctypes.CDLL] = {}
 _typed: Dict[tuple, tuple] = {}     # (library, entry) -> (CDLL, function)

@@ -51,6 +51,7 @@
 #include <stdint.h>
 
 #include "../../common/csrc/hopper_async.cuh"
+#include "flash_bwd_tile.cuh"
 #include "flash_tile.cuh"
 #include "wgmma_ops.cuh"
 
@@ -167,8 +168,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_hopper(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
-                     int KV, int hd, float scale, int causal, int window) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int S, int Tk, int H, int KV, int hd, float scale,
+                     int causal, int window) {
   constexpr int NDB = d_boxes(HDP);
   constexpr int KSTEPS = HDP / 16;        // k-steps of Q.K^T over d
   extern __shared__ uint8_t smem_raw[];
@@ -356,6 +358,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
     if (qi >= S) continue;
+    // the row's log-sum-exp for the backward kernels, where asked for
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qi] =
+          fab::lse_of_log2(m[r], l[r]);
     // one division a row; a row with no key in band comes out 0
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
@@ -391,9 +397,9 @@ inline CUresult make_map(CUtensorMap* map, const void* ptr, int hd,
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, int KV, int hd, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int KV, int hd, int causal,
+           int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (make_map(&tq, q, hd, H, S, B) != CUDA_SUCCESS ||
       make_map(&tk, k, hd, KV, Tk, B) != CUDA_SUCCESS ||
@@ -406,7 +412,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_hopper<HDP><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, H, KV, hd,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, KV, hd,
       1.0f / sqrtf(static_cast<float>(hd)), causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -423,17 +429,17 @@ inline bool takes(const void* q, const void* k, const void* v,
 }
 
 inline int dispatch(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int Tk, int H, int KV, int hd, int causal,
-                    int window, cudaStream_t st) {
+                    float* lse, int B, int S, int Tk, int H, int KV, int hd,
+                    int causal, int window, cudaStream_t st) {
   switch ((hd + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 2: return launch<32>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 3: return launch<48>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 4: return launch<64>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 5: return launch<80>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 6: return launch<96>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 7: return launch<112>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
-    case 8: return launch<128>(q, k, v, o, B, S, Tk, H, KV, hd, causal, window, st);
+    case 1: return launch<16>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 2: return launch<32>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 3: return launch<48>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 4: return launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 5: return launch<80>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 6: return launch<96>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 7: return launch<112>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 8: return launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

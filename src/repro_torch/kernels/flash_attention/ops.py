@@ -1,14 +1,18 @@
-"""Wrapper of the flash-attention kernel, in the model's layout.
+"""Wrapper of the flash-attention kernels, in the model's layout.
 
 ``attention(q, k, v)`` takes q (B, S, H, hd) and k/v (B, T, KV, hd) as
-``repro.kernels.flash_attention.ops.attention`` does.  For CUDA tensors
-it launches ``csrc/flash_attention.cu``, which resolves GQA by indexing
-(query head h reads kv head h // (H / KV)) and runs bf16 inputs whose
-head_dim is a multiple of 8 on the tensor cores (``csrc/flash_hopper.cuh``),
-everything else on its FMA kernel; for CPU tensors it expands the kv
-heads and runs the plain version ``ref.attention_ref``.  There is
-no fallback from one to the other.  ``attention.launches`` counts the
-kernel launches.
+``repro.kernels.flash_attention.ops.attention`` does, and is
+differentiable.  For CUDA tensors its forward launches
+``csrc/flash_attention.cu``, which resolves GQA by indexing (query head
+h reads kv head h // (H / KV)) and runs bf16 inputs whose head_dim is a
+multiple of 8 on the tensor cores (``csrc/flash_hopper.cuh``),
+everything else on its FMA kernel; when a gradient is wanted the
+forward also writes each row's log-sum-exp, and the backward launches
+``csrc/flash_attention_bwd.cu`` (``attention_bwd``).  For CPU tensors
+both directions run the plain version (``ref.attention_plain`` and
+``ref.attention_bwd_ref``).  There is no fallback from one to the
+other.  ``attention.launches`` and ``attention_bwd.launches`` count the
+kernel launches (two a backward call: dQ's kernel, then dK/dV's).
 """
 from __future__ import annotations
 
@@ -18,11 +22,12 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_plain
 
 MAX_HEAD_DIM = 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P]
+_BWD_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
 
 
 def _check(q, k, v, window) -> None:
@@ -44,12 +49,20 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"attention: window must be positive, got {window}")
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, T, KV, hd) -> (B, H, T, hd), each kv head repeated H/KV times."""
-    return k.transpose(1, 2).repeat_interleave(n_heads // k.shape[2], dim=1)
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (a CUDA tensor) rather than the
+    plain version (a CPU tensor); anything else raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"attention: unsupported device {t.device}")
+    return t.device.type == "cuda"
 
 
-def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, window: Optional[int], *,
+            lse: bool = False, out: Optional[torch.Tensor] = None,
+            rows: Optional[torch.Tensor] = None):
+    """The forward kernel: (out, lse (B, H, S) float32 or None).  ``out``
+    (contiguous, q's shape and type) and ``rows`` (contiguous (B, H, S)
+    float32, with ``lse``) receive them if given."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
@@ -58,14 +71,41 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     fn = _build.function("flash_attention", "flash_attention_fwd",
                          _ARGTYPES)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out is None else out
+    if lse and rows is None:
+        rows = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), B, S, T, H, KV, hd, int(causal),
-                    window or 0, int(q.dtype == torch.bfloat16), stream),
+                    out.data_ptr(), rows.data_ptr() if lse else None, B, S,
+                    T, H, KV, hd, int(causal), window or 0,
+                    int(q.dtype == torch.bfloat16), stream),
                  "flash_attention_fwd")
     attention.launches += 1
-    return out
+    return out, rows
+
+
+def _launch_bwd(q, k, v, dout, lse, causal: bool, window: Optional[int],
+                *, grads=None):
+    """The backward kernels: (dq, dk, dv) in the inputs' type.  ``grads``
+    (three contiguous tensors shaped and typed as q, k, v) receive them
+    if given."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd",
+                         _BWD_ARGTYPES)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout.to(q.dtype)))
+    dq, dk, dv = grads if grads is not None else (
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    dout.data_ptr(), lse.contiguous().data_ptr(),
+                    dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), B, S, T, H, KV, hd, int(causal),
+                    window or 0, int(q.dtype == torch.bfloat16), stream),
+                 "flash_attention_bwd")
+    attention_bwd.launches += 2
+    return dq, dk, dv
 
 
 def hopper_shared_memory(hd: int) -> int:
@@ -75,20 +115,56 @@ def hopper_shared_memory(hd: int) -> int:
                            [_I])(hd)
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, lse: Optional[torch.Tensor], *,
+                  causal: bool = True, window: Optional[int] = None):
+    """(dq, dk, dv) of ``attention`` given the output's gradient: the
+    backward kernels for CUDA tensors (``lse`` from the forward kernel),
+    the plain backward for CPU tensors (``lse`` unused)."""
+    _check(q, k, v, window)
+    return _backward(q, k, v, dout, lse, causal, window)
+
+
+def _backward(q, k, v, dout, lse, causal, window):
+    if _on_card(q):
+        return _launch_bwd(q, k, v, dout, lse, causal, window)
+    return attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel and, for the gradient, the backward kernels;
+    the row log-sum-exp is written and kept only when a gradient is
+    wanted, so serving records nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, need):
+        if _on_card(q):
+            out, lse = _launch(q, k, v, causal, window, lse=need)
+        else:
+            out, lse = attention_plain(q, k, v, causal=causal,
+                                       window=window), None
+        if need:
+            ctx.save_for_backward(q, k, v, lse)
+            ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, dout, lse, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, T, KV, hd).  Returns (B, S, H, hd) in
     q's type."""
     _check(q, k, v, window)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        H = q.shape[2]
-        out = attention_ref(q.transpose(1, 2), _expand_kv(k, H),
-                            _expand_kv(v, H), causal=causal, window=window)
-        return out.transpose(1, 2)
-    raise ValueError(f"attention: unsupported device {q.device}")
+    need = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _Attention.apply(q, k, v, causal, window, need)
 
 
 attention.launches = 0
+attention_bwd.launches = 0

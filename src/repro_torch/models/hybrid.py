@@ -11,6 +11,12 @@ them for ``lax.scan``); the loops over groups and layers are Python.
 Decode state: one SSM state per Mamba2 layer and one KV cache per
 shared-block application, stacked as the reference stacks them:
 ``ssm`` leaves (G, per, B, ...), ``kv`` leaves (G, B, ...).
+
+Training runs ``HybridLM.forward`` (the reference's ``forward``): the
+logits of every position, each Mamba2 layer and each shared-block
+application wrapped as the reference's ``remat_wrap`` wraps them
+(``cfg.remat``: "full" recomputes the wrapped call in the backward pass,
+through ``torch.utils.checkpoint``; "none" keeps its activations).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -44,6 +51,10 @@ class MambaLayer(nn.Module):
         self.ln = L.Norm(cfg, device)
         self.mix = Mamba2Mixer(cfg, generator, device)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training: x after the layer (its state is dropped)."""
+        return x + self.mix(self.ln(x))[0]
+
 
 class SharedBlock(nn.Module):
     def __init__(self, cfg, generator, device):
@@ -58,6 +69,29 @@ class SharedBlock(nn.Module):
         h, kv = self.attn(self.ln1(x), causal=True)
         x = x + h
         return x + self.mlp(self.ln2(x)), kv
+
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self(x)[0]
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` as the reference's ``remat_wrap`` (models/transformer.py)
+    wraps it: "none" as it is, "full" recomputed in the backward pass.
+    The reference's "dots" policy (keep the matrix products, recompute
+    the rest) has no counterpart yet."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' is not ported (ROADMAP.md queue 1)")
+    if cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+
+    def wrapped(x):
+        if not torch.is_grad_enabled():
+            return fn(x)
+        return checkpoint(fn, x, use_reentrant=False)
+    return wrapped
 
 
 class HybridLM(nn.Module):
@@ -82,6 +116,22 @@ class HybridLM(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.shared = SharedBlock(cfg, generator, device)
         self.ln_f = L.Norm(cfg, device)
+
+    def forward(self, tokens: torch.Tensor):
+        """tokens (B, S) -> (float32 logits of every position (B, S, Vp),
+        aux loss 0.0): the reference's ``hybrid.forward``."""
+        cfg = self.cfg
+        _, per = groups(cfg)
+        mamba = [remat_wrap(layer, cfg) for layer in self.layers]
+        shared = remat_wrap(self.shared.train_forward, cfg)
+        x = L.embed_tokens(self.embed, cfg, tokens)
+        for layer_i, body in enumerate(mamba):
+            x = body(x)
+            if (layer_i + 1) % per == 0:
+                x = shared(x)
+        x = self.ln_f(x)
+        return (L.logits_from_hidden(self.embed, cfg, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     def prefill(self, tokens: torch.Tensor, *, context: int):
         """tokens (B, S) -> (logits of the last position (B, 1, Vp),

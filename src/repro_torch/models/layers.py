@@ -7,7 +7,8 @@ with their padded-vocabulary mask.  Parameters keep the reference's
 shapes and names (``wq`` is (D, H, hd), ...), so ``repro_torch.convert``
 carries weights across by name.  The reference's sharding annotations
 have no counterpart: the port runs on one device.  Parameters are held
-without gradients: this is the serving path.
+without gradients, as serving needs them; a trainer turns gradients on
+(``params.requires_grad_(True)``).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The model API the server uses, in PyTorch.
 
-Mirrors the serving half of ``repro.models.model.Model``:
+Mirrors ``repro.models.model.Model`` and its ``lm_loss``:
 
   init(seed)                            -> params (an nn.Module)
+  loss(params, batch)                   -> (loss, metrics)
   prefill(params, batch, context=)      -> (logits, caches)
   decode(params, tokens, caches, index) -> (logits, caches)
   init_caches(batch, context)
@@ -17,6 +18,7 @@ import dataclasses
 from typing import Dict, Iterator, Union
 
 import torch
+from torch.nn import functional as F
 
 from ..device import DeviceLike, resolve_device
 from . import hybrid
@@ -25,6 +27,26 @@ from .layers import KVCache
 from .ssm import SSMState
 
 PORTED_FAMILIES = ("hybrid",)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
+            z_coef: float = 1e-4, ce_impl: str = "gather"):
+    """Token-mean cross entropy plus z-loss and aux, float32 throughout.
+    The padded vocabulary columns carry -1e9 logits, so the log-sum-exp
+    over them is exact; ``ce_impl="onehot"`` contracts the vocabulary
+    against a one-hot instead of gathering it (the same number)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    if ce_impl == "onehot":
+        oh = F.one_hot(labels.long(), logits.shape[-1]).float()
+        ll = torch.einsum("bsv,bsv->bs", logits, oh)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.mean(lse - ll)
+    zl = z_coef * torch.mean(torch.square(lse))
+    loss = nll + zl + aux
+    return loss, {"loss": loss, "nll": nll, "z_loss": zl, "aux": aux,
+                  "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
 
 
 def _leaves(tree) -> Iterator:
@@ -48,6 +70,13 @@ class Model:
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(seed)
         return hybrid.HybridLM(self.cfg, gen, self.device)
+
+    def loss(self, params: hybrid.HybridLM,
+             batch: Dict[str, torch.Tensor]):
+        """(loss, metrics) of a batch {"tokens", "labels"} (B, S)."""
+        logits, aux = params(batch["tokens"])
+        return lm_loss(logits, batch["labels"], aux,
+                       ce_impl=self.cfg.ce_impl)
 
     def prefill(self, params: hybrid.HybridLM,
                 batch: Dict[str, torch.Tensor], *, context: int = 0):

@@ -32,7 +32,8 @@ torch = pytest.importorskip("torch")
 # small tensors: intra-op threads only contend with the other test workers
 torch.set_num_threads(1)
 
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref  # noqa: E402
 
 KERNELS = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
@@ -582,3 +583,286 @@ def test_ssd_f64_walk_is_nearer_the_oracle_than_plain(lib, L, P, N):
     exact = stress.ssd_error_bound(*args)[0][0, :, 0].numpy()
     plain = intra_chunk_ref(*args)[0, :, 0].numpy()
     assert np.abs(y - exact).mean() < np.abs(plain - exact).mean()
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' per-element arithmetic (flash_bwd_tile.cuh,
+# ssd_bwd_tile.cuh), walked serially in the kernels' tile order
+# ---------------------------------------------------------------------------
+
+BWD_SHIM = r"""
+#include <math.h>
+#include <algorithm>
+#include <vector>
+#include "flash_tile.cuh"
+#include "flash_bwd_tile.cuh"
+#include "ssd_bwd_tile.cuh"
+extern "C" {
+// One batch: q, dout (S, H, hd); k, v (T, KV, hd); lse (H, S).  The
+// forward's row log-sum-exp as its kernels write it.
+void h_flash_lse(const float* q, const float* k, float* lse, int S, int T,
+                 int H, int KV, int hd, int causal, int window, int log2) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  for (int h = 0; h < H; ++h) {
+    const int kvh = h / (H / KV);
+    for (int i = 0; i < S; ++i) {
+      float m = fa::NEG_INF, l = 0.0f;
+      for (int j = 0; j < T; ++j) {
+        if (!fa::in_band(i, j, T, causal, window)) continue;
+        float s = 0.0f;
+        for (int d = 0; d < hd; ++d)
+          s = fmaf(q[(i * H + h) * hd + d], k[(j * KV + kvh) * hd + d], s);
+        const float alpha = fa::online_rescale(m, s * scale);
+        l = l * alpha + expf(s * scale - m);
+      }
+      lse[h * S + i] = log2 ? fab::lse_of_log2(m * fa::LOG2E, l)
+                            : fab::lse_of(m, l);
+    }
+  }
+}
+
+static float dot_rows(const float* a, const float* b, int hd) {
+  float s = 0.0f;
+  for (int d = 0; d < hd; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+// The two kernels' walks: dQ over (head, q-tile) blocks and their live
+// k-tiles (pass 1 for D, pass 2 for dS and dQ), dK/dV over (kv head,
+// k-tile) blocks, the group's heads and their live q-tiles.
+void h_flash_bwd(const float* q, const float* k, const float* v,
+                 const float* dout, const float* lse, float* dq, float* dk,
+                 float* dv, float* dsum, int S, int T, int H, int KV, int hd,
+                 int causal, int window, int bq, int bk) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const int group = H / KV;
+  auto qr = [&](const float* t, int i, int h) { return t + (i * H + h) * hd; };
+  auto kr = [&](const float* t, int j, int h) { return t + (j * KV + h) * hd; };
+  for (int h = 0; h < H; ++h) {
+    const int kvh = h / group;
+    for (int q_lo = 0; q_lo < S; q_lo += bq) {
+      const int q_hi = std::min(q_lo + bq, S) - 1;
+      for (int i = q_lo; i <= q_hi; ++i) {
+        float D = 0.0f;
+        for (int k_lo = 0; k_lo < T; k_lo += bk) {
+          const int k_hi = std::min(k_lo + bk, T) - 1;
+          if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window)) continue;
+          for (int j = k_lo; j < k_lo + bk; ++j) {
+            const bool live = fa::in_band(i, j, T, causal, window);
+            if (j >= T) continue;
+            const float s = dot_rows(qr(q, i, h), kr(k, j, kvh), hd);
+            const float dp = dot_rows(qr(dout, i, h), kr(v, j, kvh), hd);
+            D = fmaf(fab::prob(s, scale, lse[h * S + i], live), dp, D);
+          }
+        }
+        dsum[h * S + i] = D;
+        std::vector<float> acc(hd, 0.0f);
+        for (int k_lo = 0; k_lo < T; k_lo += bk) {
+          const int k_hi = std::min(k_lo + bk, T) - 1;
+          if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window)) continue;
+          for (int j = k_lo; j <= k_hi; ++j) {
+            const bool live = fa::in_band(i, j, T, causal, window);
+            const float s = dot_rows(qr(q, i, h), kr(k, j, kvh), hd);
+            const float dp = dot_rows(qr(dout, i, h), kr(v, j, kvh), hd);
+            const float ds = fab::dscore(
+                fab::prob(s, scale, lse[h * S + i], live), dp, D);
+            for (int d = 0; d < hd; ++d)
+              acc[d] = fmaf(ds, kr(k, j, kvh)[d], acc[d]);
+          }
+        }
+        for (int d = 0; d < hd; ++d) dq[(i * H + h) * hd + d] = acc[d] * scale;
+      }
+    }
+  }
+  for (int kvh = 0; kvh < KV; ++kvh)
+    for (int k_lo = 0; k_lo < T; k_lo += bk) {
+      const int k_hi = std::min(k_lo + bk, T) - 1;
+      for (int j = k_lo; j <= k_hi; ++j) {
+        std::vector<float> ak(hd, 0.0f), av(hd, 0.0f);
+        for (int g = 0; g < group; ++g) {
+          const int h = kvh * group + g;
+          for (int q_lo = 0; q_lo < S; q_lo += bq) {
+            const int q_hi = std::min(q_lo + bq, S) - 1;
+            if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window))
+              continue;
+            for (int i = q_lo; i <= q_hi; ++i) {
+              const bool live = fa::in_band(i, j, T, causal, window);
+              const float s = dot_rows(qr(q, i, h), kr(k, j, kvh), hd);
+              const float dp = dot_rows(qr(dout, i, h), kr(v, j, kvh), hd);
+              const float p = fab::prob(s, scale, lse[h * S + i], live);
+              const float ds = fab::dscore(p, dp, dsum[h * S + i]);
+              for (int d = 0; d < hd; ++d) {
+                av[d] = fmaf(p, qr(dout, i, h)[d], av[d]);
+                ak[d] = fmaf(ds, qr(q, i, h)[d], ak[d]);
+              }
+            }
+          }
+        }
+        for (int d = 0; d < hd; ++d) {
+          dk[(j * KV + kvh) * hd + d] = ak[d] * scale;
+          dv[(j * KV + kvh) * hd + d] = av[d];
+        }
+      }
+    }
+}
+
+// One chunk: x, dy (L, H, P); dt, cum (L, H); B, C (L, N).  The per-item
+// kernel for every head (pair terms, dx, ddt, dcum and the head's share
+// of dCB), then the per-chunk kernel (dCB over the heads in order, dC,
+// dB), every sum in double as the kernels take them.
+void h_ssd_bwd(const float* x, const float* dt, const float* cum,
+               const float* B, const float* C, const float* dy, float* dx,
+               float* ddt, float* dcum, float* dB, float* dC, int L, int H,
+               int P, int N) {
+  std::vector<float> part(H * L * L);
+  std::vector<double> s(L * L), v(L * L), w(L * L);
+  for (int h = 0; h < H; ++h) {
+    for (int i = 0; i < L; ++i)
+      for (int j = 0; j < L; ++j) {
+        double cb = 0.0, ds = 0.0;
+        for (int n = 0; n < N; ++n) cb = fma(double(C[i * N + n]), double(B[j * N + n]), cb);
+        for (int p = 0; p < P; ++p)
+          ds = fma(double(dy[(i * H + h) * P + p]), double(x[(j * H + h) * P + p]), ds);
+        double dcb;
+        ssdb::pair_grads<double>(cb, cum[i * H + h], cum[j * H + h],
+                                 dt[j * H + h], ds, i, j, s[i * L + j],
+                                 v[i * L + j], w[i * L + j], dcb);
+        part[(h * L + i) * L + j] = static_cast<float>(dcb);
+      }
+    for (int j = 0; j < L; ++j) {
+      for (int p = 0; p < P; ++p) {
+        double a = 0.0;
+        for (int i = 0; i < L; ++i) a = fma(s[i * L + j], double(dy[(i * H + h) * P + p]), a);
+        dx[(j * H + h) * P + p] = static_cast<float>(a);
+      }
+      double vs = 0.0, row = 0.0, col = 0.0;
+      for (int i = 0; i < L; ++i) {
+        vs += v[i * L + j];
+        col += w[i * L + j];
+        row += w[j * L + i];
+      }
+      ddt[j * H + h] = static_cast<float>(vs);
+      dcum[j * H + h] = static_cast<float>(row - col);
+    }
+  }
+  std::vector<double> dcb(L * L, 0.0);
+  for (int h = 0; h < H; ++h)
+    for (int e = 0; e < L * L; ++e) dcb[e] += part[h * L * L + e];
+  for (int r = 0; r < L; ++r)
+    for (int n = 0; n < N; ++n) {
+      double c_ = 0.0, b_ = 0.0;
+      for (int m = 0; m < L; ++m) {
+        c_ = fma(dcb[r * L + m], double(B[m * N + n]), c_);
+        b_ = fma(dcb[m * L + r], double(C[m * N + n]), b_);
+      }
+      dC[r * N + n] = static_cast<float>(c_);
+      dB[r * N + n] = static_cast<float>(b_);
+    }
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def bwd_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host harness cannot be built")
+    d = tmp_path_factory.mktemp("csrc_lm_bwd")
+    (d / "shim.cpp").write_text(BWD_SHIM)
+    so = d / "libshim.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall",
+                    "-Werror",
+                    "-I", str(KERNELS / "flash_attention" / "csrc"),
+                    "-I", str(KERNELS / "mamba2_scan" / "csrc"),
+                    str(d / "shim.cpp"), "-o", str(so)], check=True)
+    return ctypes.CDLL(str(so))
+
+
+def _plain_lse(q, k, causal, window):
+    """(H, S) log-sum-exp of the scaled, masked scores, float64."""
+    from repro_torch.kernels.flash_attention.ref import expand_kv
+    qt = torch.from_numpy(q).double()[None].transpose(1, 2)
+    kt = expand_kv(torch.from_numpy(k).double()[None], q.shape[1])
+    logits = torch.einsum("bhsd,bhtd->bhst", qt, kt) / np.sqrt(q.shape[-1])
+    S, T = logits.shape[-2:]
+    i, j = np.arange(S)[:, None], np.arange(T)[None]
+    band = (j <= i if causal else np.ones((S, T), bool)) & (
+        (i - j) < window if window else True)
+    logits = logits.masked_fill(~torch.from_numpy(band), float("-inf"))
+    return torch.logsumexp(logits, -1)[0].numpy()
+
+
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window,bq,bk", [
+    (100, 100, 2, 2, 16, True, None, 64, 64),    # ragged q and k tiles
+    (90, 90, 4, 2, 24, False, None, 32, 64),     # GQA
+    (200, 200, 2, 1, 8, True, 48, 64, 64),       # skipped tiles both sides
+    (40, 100, 2, 2, 16, False, 30, 16, 32),      # S < T
+    (70, 70, 1, 1, 80, True, 7, 16, 16),
+])
+def test_flash_bwd_walk_matches_plain(bwd_lib, S, T, H, KV, hd, causal,
+                                      window, bq, bk):
+    rng = np.random.default_rng(S + T + hd)
+    q, dout = (rng.standard_normal((S, H, hd)).astype(np.float32)
+               for _ in "qo")
+    k, v = (rng.standard_normal((T, KV, hd)).astype(np.float32) for _ in "kv")
+    lse = np.empty((H, S), np.float32)
+    bwd_lib.h_flash_lse(_p(q), _p(k), _p(lse), S, T, H, KV, hd, int(causal),
+                        window or 0, 0)
+    np.testing.assert_allclose(lse, _plain_lse(q, k, causal, window),
+                               rtol=2e-6, atol=2e-6)
+    lse2 = np.empty_like(lse)
+    bwd_lib.h_flash_lse(_p(q), _p(k), _p(lse2), S, T, H, KV, hd,
+                        int(causal), window or 0, 1)
+    np.testing.assert_allclose(lse2, lse, rtol=2e-6, atol=2e-6)
+    dq, dsum = np.empty_like(q), np.empty((H, S), np.float32)
+    dk, dv = np.empty_like(k), np.empty_like(v)
+    bwd_lib.h_flash_bwd(_p(q), _p(k), _p(v), _p(dout), _p(lse), _p(dq),
+                        _p(dk), _p(dv), _p(dsum), S, T, H, KV, hd,
+                        int(causal), window or 0, bq, bk)
+    want = attention_bwd_ref(*(torch.from_numpy(a)[None]
+                               for a in (q, k, v, dout)),
+                             causal=causal, window=window)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        np.testing.assert_allclose(got, w[0].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_flash_lse_marks_rows_without_keys(bwd_lib):
+    """A row with no key in band gets lse = +inf, so that every
+    probability the backward recomputes for it is 0."""
+    q = np.ones((4, 1, 8), np.float32)
+    k = np.ones((4, 1, 8), np.float32)
+    lse = np.empty((1, 4), np.float32)
+    bwd_lib.h_flash_lse(_p(q), _p(k), _p(lse), 4, 2, 1, 1, 8, 0, 0, 0)
+    assert np.isfinite(lse).all()
+    # window 1, keys 0..1: rows 2 and 3 see none
+    bwd_lib.h_flash_lse(_p(q), _p(k), _p(lse), 4, 2, 1, 1, 8, 0, 1, 0)
+    assert np.isfinite(lse[0, :2]).all() and np.isposinf(lse[0, 2:]).all()
+
+
+@pytest.mark.parametrize("L,H,P,N", [(64, 3, 16, 8), (40, 2, 8, 16),
+                                     (17, 4, 5, 3), (1, 2, 4, 4),
+                                     (64, 2, 32, 32)])
+def test_ssd_bwd_walk_matches_plain(bwd_lib, L, H, P, N):
+    """The two kernels' walk (double sums) against the plain backward at
+    1e-5 and against its float64 run at 1e-6: the walk is the nearer."""
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
+    rng = np.random.default_rng(L * H + P)
+    x, dy = (rng.standard_normal((L, H, P)).astype(np.float32) for _ in "xy")
+    dt = np.log1p(np.exp(rng.standard_normal((L, H)))).astype(np.float32)
+    cum = np.cumsum(-np.log1p(np.exp(rng.standard_normal((L, H)))),
+                    0).astype(np.float32)
+    B, C = (rng.standard_normal((L, N)).astype(np.float32) for _ in "BC")
+    outs = [np.empty_like(a) for a in (x, dt, cum, B, C)]
+    bwd_lib.h_ssd_bwd(_p(x), _p(dt), _p(cum), _p(B), _p(C), _p(dy),
+                      *map(_p, outs), L, H, P, N)
+    args = [torch.from_numpy(a)[None] for a in (x, dt, cum, B, C, dy)]
+    want = intra_chunk_bwd_ref(*args)
+    exact = intra_chunk_bwd_ref(*(a.double() for a in args))
+    for name, got, w, e in zip(("dx", "ddt", "dcum", "dB", "dC"), outs,
+                               want, exact):
+        np.testing.assert_allclose(got, w[0].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(got, e[0].numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg=name)

@@ -314,15 +314,16 @@ def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
     version on the card, TF32 off: 2e-2, and every element within two
     bf16 steps of itself."""
     from repro_torch.kernels.flash_attention.ops import (
-        _expand_kv, attention, hopper_shared_memory)
+        attention, hopper_shared_memory)
+    from repro_torch.kernels.flash_attention.ref import expand_kv
     from repro_torch.kernels.flash_attention.ref import attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _attn_inputs(gpu, B, S, T, H, KV, hd, torch.bfloat16, seed=hd)
     before = attention.launches
     got = attention(q, k, v, causal=causal, window=window).float()
     assert attention.launches == before + 1
-    want = attention_ref(q.transpose(1, 2), _expand_kv(k, H),
-                         _expand_kv(v, H), causal=causal,
+    want = attention_ref(q.transpose(1, 2), expand_kv(k, H),
+                         expand_kv(v, H), causal=causal,
                          window=window).transpose(1, 2).float()
     torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(got, want, rtol=2.0 ** -6, atol=1e-5)
@@ -338,6 +339,47 @@ def test_flash_kernel_refuses_head_dim_over_128(gpu):
     assert attention.launches == before
 
 
+def _ssd_inputs(gpu, G, L, H, P, N, seed):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.randn(G, L, H, P, device=gpu, generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g))
+    cum = torch.cumsum(-torch.nn.functional.softplus(
+        torch.randn(G, L, H, device=gpu, generator=g)), dim=1)
+    Bm, Cm = (torch.randn(G, L, N, device=gpu, generator=g) for _ in "BC")
+    return x, dt, cum, Bm, Cm
+
+
+def _ssd_mismatch_report(ins, got, want, tag):
+    """On a mismatch: launch the kernel again, run the plain version
+    again, compute a float64 oracle on the host, save the inputs and all
+    four outputs under the build directory, and say which side is off
+    the oracle and whether the second launch repeats the first."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_ref
+    got2 = ssd_intra_chunk(*ins).cpu()
+    host = [t.cpu() for t in ins]
+    want2 = ssd_intra_chunk(*host)
+    exact = intra_chunk_ref(*(t.double() for t in host))
+
+    def off(y):
+        d = (y.double() - exact).abs()
+        bad = d > 2e-5 + 2e-5 * exact.abs()
+        return int(bad.sum()), float(d.max())
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"ssd_mismatch_{tag}.npz"
+    np.savez(path, **{n: t.numpy() for n, t in zip(
+        ("x", "dt", "cum", "Bm", "Cm"), host)}, kernel=got.numpy(),
+        kernel_again=got2.numpy(), plain=want.numpy(),
+        plain_again=want2.numpy(), oracle=exact.numpy())
+    return (f"kernel off the f64 oracle (elements, max): {off(got)}, second "
+            f"launch {off(got2)}, second launch equal to the first: "
+            f"{torch.equal(got, got2)}; plain {off(want)}, plain again "
+            f"{off(want2)}, equal: {torch.equal(want, want2)}; saved {path}")
+
+
 @pytest.mark.parametrize("G,L,H,P,N", [
     (6, 64, 8, 64, 64), (3, 40, 5, 16, 16), (2, 64, 3, 50, 70),
     (1, 64, 80, 64, 64),      # G = 1
@@ -351,18 +393,15 @@ def test_flash_kernel_refuses_head_dim_over_128(gpu):
 ])
 def test_ssd_kernel_matches_plain(gpu, G, L, H, P, N):
     from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk
-    g = torch.Generator(device=gpu).manual_seed(G * L)
-    x = torch.randn(G, L, H, P, device=gpu, generator=g)
-    dt = torch.nn.functional.softplus(
-        torch.randn(G, L, H, device=gpu, generator=g))
-    cum = torch.cumsum(-torch.nn.functional.softplus(
-        torch.randn(G, L, H, device=gpu, generator=g)), dim=1)
-    Bm, Cm = (torch.randn(G, L, N, device=gpu, generator=g) for _ in "BC")
+    ins = _ssd_inputs(gpu, G, L, H, P, N, G * L)
     before = ssd_intra_chunk.launches
-    got = ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    got = ssd_intra_chunk(*ins)
     assert ssd_intra_chunk.launches == before + 1
-    want = ssd_intra_chunk(*(t.cpu() for t in (x, dt, cum, Bm, Cm)))
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+    want = ssd_intra_chunk(*(t.cpu() for t in ins))
+    got = got.cpu()
+    if not np.allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5):
+        print(_ssd_mismatch_report(ins, got, want, f"{G}-{L}-{H}-{P}-{N}"))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
 
 
@@ -456,3 +495,191 @@ def test_lm_kernels_repeat_bit_for_bit_and_match_card_plain(gpu, seed):
                            seed)
     o1 = attention(q, k, v)
     assert torch.equal(o1, attention(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels, the forward's row log-sum-exp, and the probes for
+# unwritten outputs (NaN-filled) and stale shared memory (poisoned)
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = [  # (B, S, T, H, KV, hd, dtype, causal, window)
+    (1, 256, 256, 4, 4, 80, torch.bfloat16, True, None),
+    (2, 130, 130, 4, 2, 80, torch.bfloat16, True, None),
+    (1, 200, 200, 4, 4, 16, torch.float32, True, None),
+    (1, 150, 150, 2, 2, 128, torch.float32, True, None),
+    (1, 100, 100, 4, 4, 80, torch.float32, False, None),
+    (1, 300, 300, 4, 4, 80, torch.float32, True, 64),
+    (1, 190, 190, 8, 2, 80, torch.float32, True, None),
+    (1, 70, 200, 4, 2, 80, torch.float32, False, None),    # S < T
+    (1, 64, 150, 4, 4, 80, torch.bfloat16, False, 40),     # S < T, window
+]
+
+
+def _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=0):
+    q, k, v = _attn_inputs(gpu, B, S, T, H, KV, hd, dtype, seed)
+    g = torch.Generator(device=gpu).manual_seed(seed + 7)
+    dout = torch.randn(B, S, H, hd, device=gpu, generator=g).to(dtype)
+    return q, k, v, dout
+
+
+def _grad_close(got, want, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:   # two bf16 steps of each element
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -6, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,dtype,causal,window",
+                         FLASH_BWD_CASES)
+def test_flash_lse_matches_plain_logsumexp(gpu, B, S, T, H, KV, hd, dtype,
+                                           causal, window):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import expand_kv
+    q, k, v, _ = _flash_case(gpu, B, S, T, H, KV, hd, dtype)
+    out, lse = ops._launch(q, k, v, causal, window, lse=True)
+    plain, _ = ops._launch(q, k, v, causal, window)
+    assert torch.equal(out, plain)      # serving's output is unchanged
+    logits = torch.einsum("bhsd,bhtd->bhst", q.transpose(1, 2).double(),
+                          expand_kv(k, H).double()) / hd ** 0.5
+    i = torch.arange(S, device=gpu)[:, None]
+    j = torch.arange(T, device=gpu)[None]
+    band = (j <= i) if causal else torch.ones_like(i * j, dtype=torch.bool)
+    if window:
+        band &= (i - j) < window
+    want = torch.logsumexp(logits.masked_fill(~band, float("-inf")), -1)
+    torch.testing.assert_close(lse.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,dtype,causal,window",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(gpu, B, S, T, H, KV, hd, dtype,
+                                       causal, window):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=S)
+    _, lse = ops._launch(q, k, v, causal, window, lse=True)
+    before = ops.attention_bwd.launches
+    got = ops.attention_bwd(q, k, v, dout, lse, causal=causal, window=window)
+    assert ops.attention_bwd.launches == before + 2
+    again = ops.attention_bwd(q, k, v, dout, lse, causal=causal,
+                              window=window)
+    want = attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+    for a, b, w, t in zip(got, again, want, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert torch.equal(a, b)         # no atomics: the same bits
+        _grad_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("G,L,H,P,N", [
+    (128, 64, 80, 64, 64), (6, 64, 8, 64, 64), (3, 40, 5, 16, 16),
+    (9, 1, 4, 64, 64), (4, 17, 6, 32, 16), (3, 64, 5, 128, 128),
+    (2, 33, 4, 7, 5)])
+def test_ssd_bwd_kernels_match_plain(gpu, G, L, H, P, N):
+    from repro_torch.kernels.mamba2_scan import ops
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
+    ins = _ssd_inputs(gpu, G, L, H, P, N, G + L)
+    dy = torch.randn(G, L, H, P, device=gpu,
+                     generator=torch.Generator(device=gpu).manual_seed(9))
+    before = ops.ssd_intra_chunk_bwd.launches
+    got = ops.ssd_intra_chunk_bwd(*ins, dy)
+    assert ops.ssd_intra_chunk_bwd.launches == before + 2
+    again = ops.ssd_intra_chunk_bwd(*ins, dy)
+    want = intra_chunk_bwd_ref(*ins, dy)
+    for name, a, b, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, again,
+                             want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _nan_like(t):
+    return torch.full_like(t, float("nan"))
+
+
+@pytest.mark.parametrize("poison", [False, True])
+def test_lm_kernels_write_every_output_and_read_no_stale_shared_memory(
+        gpu, poison):
+    """Every output filled with NaN before the launch comes back finite
+    and equal to a launch into fresh memory; with ``poison`` every SM's
+    shared memory holds NaN before each launch, so a read of a word the
+    kernel never wrote shows too.  All four LM kernels, both flash
+    routes."""
+    from repro_torch.kernels.common import poison_shared_memory
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.mamba2_scan import ops as so
+
+    def before_launch():
+        if poison:
+            assert poison_shared_memory(gpu) > 0
+
+    for G, L, H, P, N in [(6, 64, 8, 64, 64), (5, 64, 80, 64, 64),
+                          (4, 17, 6, 32, 16), (2, 33, 4, 7, 5)]:
+        ins = _ssd_inputs(gpu, G, L, H, P, N, 11 * G + L)
+        fresh = so._launch(*ins)
+        before_launch()
+        y = so._launch(*ins, out=_nan_like(ins[0]))
+        assert torch.equal(y, fresh), (G, L, H, P, N)
+        dy = torch.randn_like(ins[0])
+        fresh = so._launch_bwd(*ins, dy)
+        before_launch()
+        got = so._launch_bwd(*ins, dy, grads=[_nan_like(t) for t in ins])
+        for a, b in zip(got, fresh):
+            assert torch.equal(a, b), (G, L, H, P, N)
+    for B, S, T, H, KV, hd, dtype, causal, window in FLASH_BWD_CASES:
+        q, k, v, dout = _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=3)
+        fresh, lse = fo._launch(q, k, v, causal, window, lse=True)
+        before_launch()
+        out, rows = fo._launch(q, k, v, causal, window, lse=True,
+                               out=_nan_like(q), rows=_nan_like(lse))
+        assert torch.equal(out, fresh) and torch.equal(rows, lse)
+        fresh = fo._launch_bwd(q, k, v, dout, lse, causal, window)
+        before_launch()
+        got = fo._launch_bwd(q, k, v, dout, lse, causal, window,
+                             grads=[_nan_like(t) for t in (q, k, v)])
+        for a, b in zip(got, fresh):
+            assert torch.equal(a, b), (B, S, H, KV, hd, dtype)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_smoke_train_step_on_gpu_matches_cpu(gpu, remat):
+    """Two AdamW steps of the smoke model through the kernels and their
+    backward kernels, card against host with the same weights: loss,
+    grad_norm and every parameter at 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import make_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import TrainState, param_tree
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.kernels.mamba2_scan.ops import ssd_intra_chunk_bwd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("zamba2-2.7b").replace(remat=remat)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant",
+                      eps=1e-3)
+    states = []
+    for dev in (gpu, torch.device("cpu")):
+        m = make_model(cfg, device=dev)
+        p = m.init(0).requires_grad_(True)
+        states.append((m, TrainState(p, adamw_init(param_tree(p)), None)))
+    states[1][1].params.load_state_dict(
+        {k: t.cpu() for k, t in states[0][1].params.state_dict().items()})
+    rng = np.random.default_rng(5)
+    f0, s0 = attention_bwd.launches, ssd_intra_chunk_bwd.launches
+    for i in range(2):
+        toks = rng.integers(0, cfg.vocab, (2, 101))
+        outs = []
+        for j, (m, st) in enumerate(states):
+            batch = {"tokens": torch.as_tensor(toks[:, :-1], device=m.device),
+                     "labels": torch.as_tensor(toks[:, 1:], device=m.device)}
+            st, met = make_train_step(m, opt)(st, batch)
+            states[j] = (m, st)
+            outs.append({k: float(v) for k, v in met.items()})
+        for k in ("loss", "grad_norm"):
+            assert outs[0][k] == pytest.approx(outs[1][k], rel=1e-4, abs=1e-4)
+    assert attention_bwd.launches - f0 == 2 * 2 * 2     # 2 steps x 2 apps
+    assert ssd_intra_chunk_bwd.launches - s0 == 2 * 4 * 2
+    for (n, a), b in zip(states[0][1].params.named_parameters(),
+                         states[1][1].params.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,
+                                   atol=1e-4, msg=n)

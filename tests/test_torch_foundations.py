@@ -33,7 +33,8 @@ COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
           "models/config.py", "configs/zamba2_2_7b.py",
           "runtime/__init__.py", "runtime/elastic.py", "runtime/faults.py",
           "runtime/heartbeat.py", "runtime/straggler.py",
-          "service/monitor.py", "service/client.py", "service/__main__.py"]
+          "service/monitor.py", "service/client.py", "service/__main__.py",
+          "data/__init__.py", "data/pipeline.py"]
 
 
 def _kernel_pairs():
