@@ -7,12 +7,13 @@ DSE sweep and zamba2-2.7b serving.
 Needs one CUDA device and nvcc; builds the kernels from the sources in
 src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
 
-1. device: the card's name and power limit, then the build of all four
+1. device: the card's name and power limit, then the build of all
    kernel libraries, one nvcc each, in parallel; a [build] line per
-   redesigned kernel (the sweep kernel, the tensor-core flash kernel at
-   hd 80, the SSD kernel at P = N = 64) with registers, shared memory and
-   spills from ptxas, and whether the flash library's SASS holds HGMMA
-   (cuobjdump);
+   redesigned kernel (the sweep kernel, the tensor-core flash kernel and
+   its two backward kernels at hd 80, the SSD kernel and its backward at
+   P = N = 64) with registers, shared memory and spills from ptxas,
+   whether ptxas serialized any wgmma, and whether the flash libraries'
+   SASS holds HGMMA (cuobjdump);
 2. the alu_dispatch kernel against its plain version on (1048576, 16)
    seeded int32 planes, bit for bit, timed there and at the main path's
    shape (one step of 16 PEs): the host's time per call, and the device
@@ -93,14 +94,16 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    shape B=2, S=4096, H=32, hd=80 bf16 causal within 2e-2 and two bf16
    steps; f32 hd 16 and 128, ragged S=1000, causal=False, window=512 and
    GQA 32/8 at 1e-4, TF32 off; SSD at (128, 64, 80, 64, 64) and the
-   card tests' ragged shapes at 1e-4), timed beside their bounds and
-   scaled_dot_product_attention's backward; (b) the main path:
+   card tests' ragged shapes at 1e-4; every case's route: bf16 with hd
+   a multiple of 8 on the tensor cores, f32 on the FMA kernels), timed
+   beside their bounds, scaled_dot_product_attention's backward and the
+   FMA kernels on f32 copies of the main shape; (b) the main path:
    launch.train.main at full width and depth (54 layers, d_model 2560,
    seeded weights, bf16 activations, f32 parameters and moments,
    remat "full"), 4 AdamW steps of 2 x 4096 tokens: finite loss, nll
    and grad_norm, every parameter changed, ms a step, tokens/s, peak
    memory, and counted launches a step (flash forward 9 x 2, its
-   backward 9 x 2 kernels, SSD forward 54 x 2, its backward 54 x 2);
+   backward 9 x 2 kernels, SSD forward 54 x 2, its backward 54 x 1);
    (c) 2 steps of full width cut to 6 layers, f32, card against host
    with the same weights: loss, grad_norm, every parameter at 1e-3;
    (d) the smoke trainer killed at step 4 (exit 42) and resumed on the
@@ -265,7 +268,7 @@ def ptxas_report(log: str, kernel: str) -> str:
 
 
 def build_report(_build) -> None:
-    """Phase 1's [build] lines for the three redesigned kernels."""
+    """Phase 1's [build] lines for the five redesigned kernels."""
     import shutil
     from repro_torch.kernels.flash_attention.ops import hopper_shared_memory
     from repro_torch.kernels.mamba2_scan.ops import shared_memory
@@ -279,16 +282,30 @@ def build_report(_build) -> None:
           f"shared memory {hopper_shared_memory(80)} bytes a block")
     print(f"[build] ssd_intra_chunk ssd_kernel<2, TMA>: {ssd};"
           f" dynamic shared memory {shared_memory(64, 64)} bytes a block")
+    bwd_log = _build.build_log("flash_attention_bwd")
+    for kernel in ("flash_bwd_dq_hopperILi80", "flash_bwd_dkdv_hopperILi80"):
+        print(f"[build] flash_attention_bwd {kernel}: "
+              f"{ptxas_report(bwd_log, kernel)}")
+    print(f"[build] ssd_intra_chunk_bwd ssd_bwd_kernel<2, TMA>: "
+          f"{ptxas_report(_build.build_log('ssd_intra_chunk_bwd'), 'ssd_bwd_kernelILi2ELb1E')}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        slow = [ln for ln in _build.build_log(name).splitlines()
+                if "Potential Performance Loss" in ln]
+        print(f"[build] {name}: {len(slow)} ptxas warnings of serialized "
+              f"wgmma" + "".join(f"\n[build]   {ln.strip()}"
+                                 for ln in slow[:4]))
     tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent
                                             / "cuobjdump")
-    lib = _build.library("flash_attention")._name
-    try:
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                              text=True, check=True).stdout
-        print(f"[build] flash_attention SASS: {sass.count('HGMMA')} HGMMA "
-              f"instructions, {sass.count('UTMALDG')} UTMALDG (TMA loads)")
-    except (OSError, subprocess.CalledProcessError) as e:
-        print(f"[build] flash_attention SASS: cuobjdump unavailable ({e})")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        lib = _build.library(name)._name
+        try:
+            sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                                  text=True, check=True).stdout
+            print(f"[build] {name} SASS: {sass.count('HGMMA')} HGMMA "
+                  f"instructions, {sass.count('UTMALDG')} UTMALDG (TMA "
+                  f"loads)")
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"[build] {name} SASS: cuobjdump unavailable ({e})")
 
 
 def axpy_shift(DAG, n_lanes, shift):
@@ -1381,7 +1398,10 @@ def ssd_bwd_bound(G, L, H, P, N):
 def train_kernels_phase(dev) -> list:
     """Phase 9a: both backward kernels against their plain backward on
     the card, gradient for gradient, timed beside their bounds (and the
-    flash one beside scaled_dot_product_attention's backward)."""
+    flash one beside scaled_dot_product_attention's backward and the FMA
+    kernels on f32 copies of its main shape); every flash case's route
+    checked (bf16 with hd % 8 == 0 on the tensor cores, f32 on the FMA
+    kernels)."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from torch.nn.functional import softplus
@@ -1400,6 +1420,9 @@ def train_kernels_phase(dev) -> list:
     cases = [  # (name, B, S, H, KV, hd, dtype, causal, window)
         ("main bf16 causal", TRAIN_B, TRAIN_S, 32, 32, 80, torch.bfloat16,
          True, None),
+        ("bf16 ragged S=1000", 1, 1000, 32, 32, 80, torch.bfloat16, True,
+         None),
+        ("bf16 GQA 32/8", 1, 2048, 32, 8, 80, torch.bfloat16, True, None),
         ("f32 hd16", 1, 2048, 32, 32, 16, torch.float32, True, None),
         ("f32 hd128", 1, 2048, 32, 32, 128, torch.float32, True, None),
         ("ragged S=1000", 1, 1000, 32, 32, 80, torch.float32, True, None),
@@ -1407,15 +1430,19 @@ def train_kernels_phase(dev) -> list:
         ("window=512", 1, 2048, 32, 32, 80, torch.float32, True, 512),
         ("GQA 32/8", 1, 2048, 32, 8, 80, torch.float32, True, None),
     ]
-    flash_err = None
+    flash_err = 0.0
     for name, B, S, H, KV, hd, dtype, causal, window in cases:
         q, dout = randn(B, S, H, hd, dtype=dtype), randn(B, S, H, hd,
                                                           dtype=dtype)
         k, v = randn(B, S, KV, hd, dtype=dtype), randn(B, S, KV, hd,
                                                        dtype=dtype)
-        _, lse = fo._launch(q, k, v, causal, window, lse=True)
+        _, lse, out32 = fo._launch(q, k, v, causal, window, lse=True)
         got = fo.attention_bwd(q, k, v, dout, lse, causal=causal,
-                               window=window)
+                               window=window, out32=out32)
+        route = fo.last_bwd_route()
+        want_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+        check(route == want_route, f"flash backward {name}: took the "
+              f"{route} route, expected {want_route}")
         want = attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -1434,13 +1461,24 @@ def train_kernels_phase(dev) -> list:
                       f"by more than two bf16 steps of itself")
         print(f"[train-kernels] flash backward {name} (B={B}, S={S}, H={H}, "
               f"KV={KV}, hd={hd}, {str(dtype)[6:]}, causal={causal}, "
-              f"window={window}): max abs err dq/dk/dv "
+              f"window={window}), {route} route: max abs err dq/dk/dv "
               f"{[float(f'{e:.3g}') for e in errs]} within {tol}"
               + (" and two bf16 steps" if dtype == torch.bfloat16 else ""))
-        flash_err = max(errs) if flash_err is None else flash_err
+        flash_err = max(flash_err, *errs)
         if name.startswith("main"):
             ms = cuda_ms(lambda: fo._launch_bwd(q, k, v, dout, lse, causal,
-                                                window), reps=5)
+                                                window, out32=out32), reps=5)
+            # the FMA kernels (the f32 route, and before the tensor-core
+            # route the bf16 one) on f32 copies of the same inputs, in
+            # the same call
+            qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+            _, lse_f, _ = fo._launch(qf, kf, vf, causal, window, lse=True)
+            fo._launch_bwd(qf, kf, vf, df, lse_f, causal, window)
+            check(fo.last_bwd_route() == "fma",
+                  "the f32 copies did not take the FMA route")
+            fma_ms = cuda_ms(lambda: fo._launch_bwd(qf, kf, vf, df, lse_f,
+                                                    causal, window), reps=2)
+            del qf, kf, vf, df, lse_f
             plain_ms = cuda_ms(lambda: attention_bwd_ref(
                 q, k, v, dout, causal=causal, window=window), reps=2)
             # the yardstick: one fused backward of PyTorch's (not its
@@ -1458,16 +1496,19 @@ def train_kernels_phase(dev) -> list:
                 out, (qt, kt, vt), do_t, retain_graph=True), reps=5)
             b_ms, b_by = flash_bwd_bound(B, S, H, hd, 2, BF16_OPS_PER_S)
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by, shape=[B, S, H, hd])
-            print(f"[train-kernels] flash backward main shape: kernels "
-                  f"{ms:.4f} ms (2 launches), plain {plain_ms:.4f} ms, "
-                  f"scaled_dot_product_attention backward {lib_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the bound")
+                        bound_ms=b_ms, bound_by=b_by, shape=[B, S, H, hd],
+                        route=route, fma_f32_ms=fma_ms)
+            print(f"[train-kernels] flash backward main shape: {route} "
+                  f"kernels {ms:.4f} ms (2 launches), plain {plain_ms:.4f} "
+                  f"ms, scaled_dot_product_attention backward {lib_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the "
+                  f"bound; the FMA kernels on f32 copies of the same "
+                  f"inputs {fma_ms:.4f} ms")
             del out, qt, kt, vt
         del q, k, v, dout, lse, got, want
         torch.cuda.empty_cache()
 
-    ssd_err, ssd_main = None, None
+    ssd_err, ssd_main = 0.0, None
     for G, L, H, P, N in [(128, 64, 80, 64, 64), (6, 64, 8, 64, 64),
                           (3, 40, 5, 16, 16), (2, 64, 3, 50, 70),
                           (1, 64, 80, 64, 64), (7, 64, 13, 64, 64),
@@ -1492,8 +1533,8 @@ def train_kernels_phase(dev) -> list:
               f"N={N}): max abs err dx/ddt/dcum/dB/dC "
               f"{[float(f'{e:.3g}') for e in errs]} within rtol = atol = "
               f"1e-4")
+        ssd_err = max(ssd_err, *errs)
         if ssd_main is None:
-            ssd_err = max(errs)
             ms = cuda_ms(lambda: so._launch_bwd(x, dt, cum, Bm, Cm, dy),
                          reps=10)
             plain_ms = cuda_ms(lambda: intra_chunk_bwd_ref(
@@ -1501,8 +1542,8 @@ def train_kernels_phase(dev) -> list:
             b_ms, b_by = ssd_bwd_bound(G, L, H, P, N)
             ssd_main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, shape=[G, L, H, P, N])
-            print(f"[train-kernels] SSD backward main shape: kernels "
-                  f"{ms:.4f} ms (2 launches), plain {plain_ms:.4f} ms, "
+            print(f"[train-kernels] SSD backward main shape: kernel "
+                  f"{ms:.4f} ms (1 launch), plain {plain_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the bound")
         del x, dy, dt, cum, Bm, Cm, got, want
     torch.cuda.empty_cache()
@@ -1515,7 +1556,8 @@ def train_kernels_phase(dev) -> list:
          "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
          "bound_by": main["bound_by"], "library_ms": main["library_ms"],
          "shape": main["shape"], "dtype": "bfloat16", "causal": True,
-         "kernels_a_call": 2},
+         "kernels_a_call": 2, "route_taken": main["route"],
+         "fma_f32_ms": main["fma_f32_ms"]},
         {"name": "ssd_intra_chunk_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba2_scan/csrc/"
                    "ssd_intra_chunk_bwd.cu",
@@ -1523,7 +1565,7 @@ def train_kernels_phase(dev) -> list:
          "launches": None, "max_abs_err": ssd_err, "ms": ssd_main["ms"],
          "plain_ms": ssd_main["plain_ms"], "bound_ms": ssd_main["bound_ms"],
          "bound_by": ssd_main["bound_by"], "library_ms": None,
-         "shape": ssd_main["shape"], "kernels_a_call": 2},
+         "shape": ssd_main["shape"], "kernels_a_call": 1},
     ]
 
 
@@ -1571,12 +1613,12 @@ def train_phase(dev, work: Path) -> dict:
     G = cfg.n_layers // cfg.shared_attn_every
     want = {"flash_attention": G * 2, "flash_attention_bwd": G * 2,
             "ssd_intra_chunk": cfg.n_layers * 2,
-            "ssd_intra_chunk_bwd": cfg.n_layers * 2}
+            "ssd_intra_chunk_bwd": cfg.n_layers}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     print(f"[train] launches in {TRAIN_STEPS} steps {launches}; a step "
           f"{per_step} (expected {want}: {G} shared-block applications "
           f"and {cfg.n_layers} Mamba2 layers, each forward run twice under "
-          f"remat, two kernels a backward call)")
+          f"remat, two flash kernels and one SSD kernel a backward call)")
     check(per_step == want, f"training launches a step {per_step}, "
           f"expected {want}")
     check(len(history) == TRAIN_STEPS, f"{len(history)} steps recorded")
@@ -1757,7 +1799,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
     _build.build_all()
-    print(f"[build] all four kernel libraries ready in "
+    print(f"[build] all {len(_build.SOURCES)} kernel libraries ready in "
           f"{time.perf_counter() - t:.3f} s; cgra_sweep kernel "
           f"{kernel_attributes()}")
     build_report(_build)

@@ -2,7 +2,8 @@
 """Time the design alternatives of the redesigned Hopper kernels
 against the kernels as committed, on one GPU.
 
-    PYTHONPATH=src python3 scripts/hopper_kernel_variants.py [--only ssd]
+    PYTHONPATH=src python3 scripts/hopper_kernel_variants.py \
+        [--only flash|sweep|ssd|flash_bwd|ssd_bwd]
 
 Each variant is a copy of ``src/repro_torch/kernels`` with a few source
 lines replaced, built with the library's own nvcc flags into
@@ -29,7 +30,19 @@ loaded in place of the committed library for its measurements:
   stores (their results are wrong by design; they show where the time
   goes).  Times are device times (the launches queue behind a sleep on
   the stream, so the host's time per call does not show) and CUDA
-  events around 20 back-to-back calls, as chip_smoke.py's `ms`.
+  events around 20 back-to-back calls, as chip_smoke.py's `ms`;
+- the flash backward's tensor-core route (the training shape B=2,
+  S=4096, H=32, hd=80, bf16, causal): a ring of three K/V tiles in the
+  dQ kernel instead of two, both kernels without setmaxnreg (168
+  registers a thread), and P and dS in one bf16 term each (the split's
+  cost; its error fails the two-bf16-steps check, shown);
+- the SSD backward (the training shape G=128, L=64, H=80, P=N=64): a
+  ring of three x/dy slots instead of two, 8 warps a block instead of
+  16, 256-byte L2 promotion of the TMA boxes, and three diagnostics that
+  leave out the double exp, the ds and C.B^T products, or the dx
+  products (wrong results by design).  Backward variants are timed by
+  CUDA events around back-to-back calls and held to the float64 plain
+  backward (elements off by more than the card checks' tolerance).
 
 Every variant's results are compared with the committed kernel's:
 attention against the plain version (max error, elements off by more
@@ -66,6 +79,9 @@ FH = "flash_attention/csrc/flash_hopper.cuh"
 FT = "flash_attention/csrc/flash_tile.cuh"
 SW = "cgra_sweep/csrc/cgra_sweep.cu"
 SSD_CU = "mamba2_scan/csrc/ssd_intra_chunk.cu"
+FB = "flash_attention/csrc/flash_bwd_hopper.cuh"
+SSD_BWD_CU = "mamba2_scan/csrc/ssd_intra_chunk_bwd.cu"
+SSD_BWD_TILE = "mamba2_scan/csrc/ssd_bwd_tile.cuh"
 
 FLASH = {
     "three consumer warpgroups": [
@@ -296,9 +312,44 @@ SSD = {
     "diagnostic: loads and stores only": [_SSD_NO_PRODUCT, _SSD_NO_CB,
                                           _SSD_NO_SCORES],
 }
+FLASH_BWD = {
+    "backward dQ ring depth 3": [
+        (FB, "constexpr int STAGES = 2;                 // ring depth",
+         "constexpr int STAGES = 3;                 // ring depth"),
+        (FB, "return hdp <= 80 ? STAGES : 1;", "return hdp <= 80 ? 2 : 1;")],
+    "backward without setmaxnreg": [
+        (FB, "    regs_release<PRODUCER_REGS>();\n", ""),
+        (FB, "  regs_take<CONSUMER_REGS>();\n", ""),
+        (FB, "if (dq_attr.numRegs < LAUNCH_REGS || kv_attr.numRegs < LAUNCH_REGS)",
+         "if (false)")],
+    "backward P and dS in one bf16 term": [
+        (FB, "    mma_rs<HDP>(acc, lo + 4 * kk, dt);\n", "")],
+}
+SSD_BWD = {
+    "backward ring depth 3": [
+        (SSD_BWD_CU, "return nbx <= 2 ? 2 : 1;", "return nbx <= 2 ? 3 : 1;")],
+    "backward 8 warps": [
+        (SSD_BWD_CU, "constexpr int WARPS = 16;", "constexpr int WARPS = 8;")],
+    "backward L2 promotion 256B": [
+        (SSD_BWD_CU, "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+         "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
+    # diagnostics, wrong results by design: where the time goes
+    "backward diagnostic: no exp": [
+        (SSD_BWD_TILE, "const T e = exp(cum_i - cum_j);",
+         "const T e = T(1) + (cum_i - cum_j);")],
+    "backward diagnostic: no ds or C.B^T products": [
+        (SSD_BWD_CU, "mma_f64(ks % 2 ? odd[t] : d[t], a_lo.x, a_hi.x, a_lo.y, "
+         "a_hi.y, bb.x,\n              bb.y);",
+         "d[t][0] += a_lo.x * bb.x + a_hi.y * bb.y;")],
+    "backward diagnostic: no dx products": [
+        (SSD_BWD_CU, "mma_f64(acc[w][t], lo.x, hi.x, lo.y, hi.y, b0[t], b1[t]);",
+         "acc[w][t][0] += lo.x * b0[t] + hi.y * b1[t];")],
+}
 KERNEL_NAME = {"flash_attention": "flash_fwd_hopperILi80",
                "cgra_sweep": "sweep_kernelILi16",
-               "ssd_intra_chunk": "ssd_kernelILi2ELb1E"}
+               "ssd_intra_chunk": "ssd_kernelILi2ELb1E",
+               "flash_attention_bwd": "flash_bwd_dkdv_hopperILi80",
+               "ssd_intra_chunk_bwd": "ssd_bwd_kernelILi2ELb1E"}
 
 
 def start_build(name: str, lib: str, edits):
@@ -409,6 +460,67 @@ def flash(libs, committed) -> None:
               f"{off} elements off by more than two bf16 steps")
 
 
+def flash_bwd(libs, committed) -> None:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 4096, 32, 80, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    _, lse, out32 = ops._launch(q, k, v, True, None, lse=True)
+    want = [w.float() for w in attention_bwd_ref(q, k, v, do)]
+
+    def run():
+        return ops._launch_bwd(q, k, v, do, lse, True, None, out32=out32)
+    for name in ["committed", *libs, "committed"]:
+        _build._loaded["flash_attention_bwd"] = libs.get(name, committed)
+        try:
+            got = [g.float() for g in run()]
+        except RuntimeError as e:       # a launch the library refused
+            print(f"[flash_bwd] {name}: {e}")
+            continue
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        off = sum(int((~torch.isclose(g, w, rtol=2.0 ** -6, atol=1e-5))
+                      .sum()) for g, w in zip(got, want))
+        ms = cuda_ms(run, reps=10)
+        print(f"[flash_bwd] {name}: {ms:.4f} ms, route "
+              f"{ops.last_bwd_route()}, max abs err {err:.3g}, {off} "
+              f"elements off by more than two bf16 steps")
+
+
+def ssd_bwd(libs, committed) -> None:
+    from repro_torch.kernels.mamba2_scan import ops
+    from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
+    spec = importlib.util.spec_from_file_location(
+        "stress_lm_kernels", ROOT / "scripts" / "stress_lm_kernels.py")
+    stress = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stress)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(128)
+    args = stress.ssd_inputs(gen, dev, 128, 64, 80, 64, 64)
+    dy = torch.randn(128, 64, 80, 64, device=dev, generator=gen)
+    want = intra_chunk_bwd_ref(*(t.double() for t in (*args, dy)))
+
+    def run():
+        return ops._launch_bwd(*args, dy)
+    for name in ["committed", *libs, "committed"]:
+        _build._loaded["ssd_intra_chunk_bwd"] = libs.get(name, committed)
+        try:
+            got = run()
+        except RuntimeError as e:       # a launch the library refused
+            print(f"[ssd_bwd] {name}: {e}")
+            continue
+        err = max(float((g.double() - w).abs().max())
+                  for g, w in zip(got, want))
+        off = sum(int((~torch.isclose(g.double(), w, rtol=1e-4, atol=1e-4))
+                      .sum()) for g, w in zip(got, want))
+        ms = cuda_ms(run, reps=20)
+        print(f"[ssd_bwd] {name}: {ms:.4f} ms, max abs err {err:.3g} "
+              f"against the float64 plain backward ({off} elements off by "
+              f"more than 1e-4)")
+
+
 def sweep(libs, committed) -> None:
     from repro_torch.apps import conv
     from repro_torch.core import dse, hwconfig
@@ -460,7 +572,8 @@ def sweep(libs, committed) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--only", choices=["flash", "sweep", "ssd"])
+    parser.add_argument("--only", choices=["flash", "sweep", "ssd",
+                                           "flash_bwd", "ssd_bwd"])
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("hopper_kernel_variants: no CUDA device", file=sys.stderr)
@@ -471,7 +584,9 @@ def main() -> int:
     _build.build_all()
     groups = {"flash": ("flash_attention", FLASH, flash),
               "sweep": ("cgra_sweep", SWEEP, sweep),
-              "ssd": ("ssd_intra_chunk", SSD, ssd)}
+              "ssd": ("ssd_intra_chunk", SSD, ssd),
+              "flash_bwd": ("flash_attention_bwd", FLASH_BWD, flash_bwd),
+              "ssd_bwd": ("ssd_intra_chunk_bwd", SSD_BWD, ssd_bwd)}
     if only:
         groups = {only: groups[only]}
     started = {}

@@ -28,7 +28,7 @@ from profile_serve_torch import report  # noqa: E402
 
 KINDS = (("flash_attention_bwd", ("flash_bwd_dq", "flash_bwd_dkdv")),
          ("flash_attention", ("flash_fwd",)),
-         ("ssd_intra_chunk_bwd", ("ssd_bwd_item", "ssd_bwd_chunk")),
+         ("ssd_intra_chunk_bwd", ("ssd_bwd_kernel",)),
          ("ssd_intra_chunk", ("ssd_kernel",)),
          ("matrix products", ("gemm", "xmma", "cutlass", "nvjet", "gemv")),
          ("f32->bf16 casts", ("bfloat16_copy_kernel",)),

@@ -22,7 +22,9 @@ and, for the SSD case of ``tests/test_torch_cuda.py`` that once failed,
 compares the kernel with the plain version on the host at that test's
 2e-5.  The backward kernels (``backward_groups``) are held to their
 float64 plain backward at the card checks' tolerances, and repeated,
-half of the repeats after every SM's shared memory is filled with NaN.
+half of the repeats after every SM's shared memory is filled with NaN;
+the flash backward's launches are counted by route (bf16 with head_dim
+a multiple of 8 on the tensor cores, the rest on the FMA kernels).
 Prints one line per group and a JSON summary last; exits 1 if a
 kernel launch leaves its bound or repeats differently.  A few minutes
 on an H100.
@@ -154,12 +156,15 @@ def backward_groups(dev, rng, summary, faults) -> None:
         return sum(int((~torch.isclose(g.double(), e, rtol=tol, atol=tol))
                        .sum()) for g, e in zip(got, exact))
 
-    def group(name, cases, run, plain, repeats):
+    def group(name, cases, run, plain, repeats, route=None):
         launches = bad = plain_bad = 0
+        routes = {}
         for i, (args, tol) in enumerate(cases):
-            exact = plain(*(a.double() for a in args))
+            exact = plain(*(None if a is None else a.double() for a in args))
             got = run(*args)
             launches += 1
+            if route is not None:
+                routes[route()] = routes.get(route(), 0) + 1 + repeats
             n_bad = outside(got, exact, tol)
             for r in range(repeats):
                 if (i + r) % 2:
@@ -176,9 +181,12 @@ def backward_groups(dev, rng, summary, faults) -> None:
         summary[name] = {"cases": len(cases), "launches": launches,
                          "kernel_elements_outside": bad,
                          "plain_on_card_elements_outside": plain_bad}
-        print(f"[{name}] {len(cases)} cases, {launches} launches, {bad} "
-              f"elements outside the bound; plain version on the card: "
-              f"{plain_bad} outside")
+        if route is not None:
+            summary[name]["launches_by_route"] = routes
+        print(f"[{name}] {len(cases)} cases, {launches} launches"
+              + (f" (by route {routes})" if route is not None else "")
+              + f", {bad} elements outside the bound; plain version on the "
+              f"card: {plain_bad} outside")
 
     def ssd_case(G, L, H, P, N, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -200,16 +208,24 @@ def backward_groups(dev, rng, summary, faults) -> None:
                  .to(dtype) for _ in "qo")
         k, v = (torch.randn(B, S, KV, hd, device=dev, generator=gen)
                 .to(dtype) for _ in "kv")
-        lse = fo._launch(q, k, v, causal, window, lse=True)[1]
-        return (q, k, v, do, lse, causal, window), (
+        _, lse, o32 = fo._launch(q, k, v, causal, window, lse=True)
+        return (q, k, v, do, lse, o32, causal, window), (
             2e-2 if dtype == torch.bfloat16 else 1e-4)
-
-    def flash_plain(q, k, v, do, lse, causal, window):
-        return attention_bwd_ref(q, k, v, do, causal=causal, window=window)
 
     bf16, f32 = torch.bfloat16, torch.float32
     flash = [flash_case(1, 1024, 8, 8, 80, bf16, True, None, s)
              for s in range(4)]
+    flash += [flash_case(1, 2048, 32, 32, 80, bf16, True, None, 10 + s)
+              for s in range(2)]
+    # the tensor-core route: bf16, head_dim a multiple of 8
+    for i in range(60):
+        KV = int(rng.choice([1, 2, 4]))
+        causal = bool(rng.integers(0, 2))
+        flash.append(flash_case(
+            int(rng.integers(1, 3)), int(rng.integers(1, 400)),
+            KV * int(rng.choice([1, 2])), KV, 8 * int(rng.integers(1, 17)),
+            bf16, causal, int(rng.integers(1, 200)) if causal
+            and rng.random() < 0.5 else None, 5000 + i))
     for i in range(120):
         KV = int(rng.choice([1, 2, 4]))
         causal = bool(rng.integers(0, 2))
@@ -219,22 +235,22 @@ def backward_groups(dev, rng, summary, faults) -> None:
             causal, int(rng.integers(1, 100)) if causal and rng.random() < 0.5
             else None, 4000 + i))
 
-    group("flash backward", [((q, k, v, do, lse), tol) for
-                             (q, k, v, do, lse, c, w), tol in flash
+    group("flash backward", [((q, k, v, do, lse, o32), tol) for
+                             (q, k, v, do, lse, o32, c, w), tol in flash
                              if c and w is None],
-          lambda q, k, v, do, lse: fo._launch_bwd(q, k, v, do, lse, True,
-                                                  None),
-          lambda q, k, v, do, lse: attention_bwd_ref(q, k, v, do),
-          repeats=2)
+          lambda q, k, v, do, lse, o32: fo._launch_bwd(
+              q, k, v, do, lse, True, None, out32=o32),
+          lambda q, k, v, do, lse, o32: attention_bwd_ref(q, k, v, do),
+          repeats=2, route=fo.last_bwd_route)
     group("flash backward, other masks",
-          [((q, k, v, do, lse, torch.tensor([int(c), w or 0])), tol)
-           for (q, k, v, do, lse, c, w), tol in flash
+          [((q, k, v, do, lse, o32, torch.tensor([int(c), w or 0])), tol)
+           for (q, k, v, do, lse, o32, c, w), tol in flash
            if not (c and w is None)],
-          lambda q, k, v, do, lse, m: fo._launch_bwd(
-              q, k, v, do, lse, bool(m[0]), int(m[1]) or None),
-          lambda q, k, v, do, lse, m: attention_bwd_ref(
+          lambda q, k, v, do, lse, o32, m: fo._launch_bwd(
+              q, k, v, do, lse, bool(m[0]), int(m[1]) or None, out32=o32),
+          lambda q, k, v, do, lse, o32, m: attention_bwd_ref(
               q, k, v, do, causal=bool(m[0]), window=int(m[1]) or None),
-          repeats=2)
+          repeats=2, route=fo.last_bwd_route)
 
 
 def main() -> int:

@@ -44,16 +44,17 @@ SOURCES: Dict[str, Path] = {
 # report is kept beside the library (``build_log``)
 _PTXAS_V = ["-Xptxas", "-v"]
 # library name -> its flags beyond NVCC_FLAGS (the sweep kernel also
-# includes the ALU header of cgra_step/csrc; the flash and SSD libraries
-# link libcuda, against the toolkit's stub, for cuTensorMapEncodeTiled)
+# includes the ALU header of cgra_step/csrc; the flash and SSD libraries,
+# forward and backward, link libcuda, against the toolkit's stub, for
+# cuTensorMapEncodeTiled)
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "cgra_alu": _NO_FMAD,
     "cgra_sweep": _NO_FMAD + _PTXAS_V
     + ["-I", str(_PKG / "cgra_step" / "csrc")],
     "flash_attention": _PTXAS_V + ["-lcuda"],
     "ssd_intra_chunk": _PTXAS_V + ["-lcuda"],
-    "flash_attention_bwd": _PTXAS_V,
-    "ssd_intra_chunk_bwd": _PTXAS_V,
+    "flash_attention_bwd": _PTXAS_V + ["-lcuda"],
+    "ssd_intra_chunk_bwd": _PTXAS_V + ["-lcuda"],
     "smem_poison": [],
 }
 _loaded: Dict[str, ctypes.CDLL] = {}

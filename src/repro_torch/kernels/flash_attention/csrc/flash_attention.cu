@@ -66,8 +66,9 @@ template <typename T, int NC>  // NC = ceil(hd / 16) output columns a thread
 __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int S, int Tk, int H, int KV, int hd,
-              float scale, int causal, int window) {
+              float* __restrict__ lse, float* __restrict__ o32, int S,
+              int Tk, int H, int KV, int hd, float scale, int causal,
+              int window) {
   extern __shared__ float smem[];
   float* qt = smem;
   float* kt = qt + hd * LD;
@@ -186,7 +187,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tc + 16 * c;
-      if (col < hd) store(&ob[qi * q_row + col], fa::finalize(acc[i][c], l[i]));
+      if (col >= hd) continue;
+      const float out = fa::finalize(acc[i][c], l[i]);
+      store(&ob[qi * q_row + col], out);
+      // the f32 output for the backward's D, where asked for
+      if (o32 != nullptr)
+        o32[(static_cast<int64_t>(b) * S * H + h) * hd + qi * q_row + col] =
+            out;
     }
     // the row's log-sum-exp for the backward kernels, where asked for
     if (lse != nullptr && tc == 0)
@@ -196,8 +203,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int Tk, int H, int KV, int hd, int causal,
-           int window, cudaStream_t stream) {
+           float* o32, int B, int S, int Tk, int H, int KV, int hd,
+           int causal, int window, cudaStream_t stream) {
   const int smem = (2 * hd * LD + BK * hd + BQ * LD) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -206,24 +213,24 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd<T, NC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, KV, hd,
-      1.0f / sqrtf(static_cast<float>(hd)), causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, o32, S, Tk, H, KV,
+      hd, 1.0f / sqrtf(static_cast<float>(hd)), causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int S, int Tk, int H, int KV, int hd,
-             int causal, int window, cudaStream_t st) {
+             float* lse, float* o32, int B, int S, int Tk, int H, int KV,
+             int hd, int causal, int window, cudaStream_t st) {
   switch ((hd + 15) / 16) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 2: return launch<T, 2>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 3: return launch<T, 3>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 4: return launch<T, 4>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 5: return launch<T, 5>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 6: return launch<T, 6>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 7: return launch<T, 7>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 8: return launch<T, 8>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 1: return launch<T, 1>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 2: return launch<T, 2>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 3: return launch<T, 3>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 4: return launch<T, 4>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 5: return launch<T, 5>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 6: return launch<T, 6>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 7: return launch<T, 7>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 8: return launch<T, 8>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -231,30 +238,32 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o as above; `lse`, where not null, receives each query row's
-// log-sum-exp of its scaled scores, (B, H, S) float32, for the backward
-// kernels (flash_attention_bwd.cu); a null `lse` writes nothing else.
+// log-sum-exp of its scaled scores, (B, H, S) float32, and `o32`, where
+// not null, the output before its rounding to o's type, (B, S, H, hd)
+// float32, both for the backward kernels (flash_attention_bwd.cu); null
+// pointers write nothing else.
 // `window` <= 0 means no window; `bf16` selects bfloat16 over float32
 // (and the Hopper kernel where it applies).
 // Launches on `stream` and returns the launch's cudaError_t (0 on
 // success); refuses hd outside 1..128, H not a multiple of KV and more
 // than 65535 (batch, head) pairs.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, float* lse, int B,
-                                   int S, int Tk, int H, int KV, int hd,
-                                   int causal, int window, int bf16,
-                                   void* stream) {
+                                   const void* v, void* o, float* lse,
+                                   float* o32, int B, int S, int Tk, int H,
+                                   int KV, int hd, int causal, int window,
+                                   int bf16, void* stream) {
   if (hd < 1 || hd > MAX_HD || KV < 1 || H % KV != 0 || B * H > 65535 ||
       Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16 && fa_hopper::takes(q, k, v, o, hd))
-    return fa_hopper::dispatch(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal,
-                               window, st);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, B, S, Tk, H, KV, hd,
-                                        causal, window, st)
-              : dispatch<float>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal,
-                                window, st);
+    return fa_hopper::dispatch(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
+                               causal, window, st);
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, o32, B, S, Tk, H,
+                                        KV, hd, causal, window, st)
+              : dispatch<float>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
+                                causal, window, st);
 }
 
 // Dynamic shared memory of the Hopper kernel for this head_dim, in bytes;

@@ -10,7 +10,21 @@
 // dK, dV (B, T, KV, hd); lse and D (B, H, S) float32; float32 or
 // bfloat16 inputs, gradients in the inputs' type.
 //
-// Two kernels, the FA2 split, so that no block adds into another's
+// What bounds it on an H100: the tensor cores.  At the training shape
+// (B 2, S = T = 4096, H 32, hd 80, bf16, causal) the function needs 5
+// products of 2 hd FLOP a pair over the causal band (S recomputed, dP,
+// dV, dQ, dK): 430 GFLOP, 0.43 ms at 989 TFLOP/s, against 0.29 GB of
+// q, k, v, dO, dQ, dK, dV (0.09 ms at 3.35 TB/s).
+//
+// Two routes, chosen from type, shape and alignment before the launch.
+// bf16 inputs with head_dim a multiple of 8 on 16-byte boundaries, given
+// the forward's f32 O, take the Hopper kernels of flash_bwd_hopper.cuh:
+// wgmma products, TMA tile loads into mbarrier rings, D from the f32 O,
+// P and dS split into two bf16 terms (10 products a pair, 0.87 ms at
+// the shape above).  float32, and bf16 that route cannot take, take the
+// FMA kernels below.  `flash_attention_bwd_last_route` reports which ran.
+//
+// The FMA kernels, the FA2 split, so that no block adds into another's
 // output (no atomics: two runs give the same bits):
 //  - flash_bwd_dq, a block per (batch, head, 64-row q-tile), walks the
 //    live k-tiles twice: first for D_i = sum_j P_ij dP_ij, then for
@@ -23,22 +37,22 @@
 //    atomics) and sums dV = P^T.dO and dK = scale dS^T.Q.
 // Both skip tiles outside the causal or window band with the forward's
 // fa::tile_live and mask pairs with fa::in_band; per-pair arithmetic is
-// in flash_bwd_tile.cuh.
-//
-// Products: 16 x 16 threads, each a 4 x 4 register tile of a 64 x 64
-// score tile (rows tr + 16i, columns tc + 16j), operands transposed in
-// shared memory with a padded row (LD = 65), f32 FMAs on the CUDA cores.
-// What bounds it on an H100: operations.  At the training shape (B 2,
-// S = T = 4096, H 32, hd 80, causal) the two kernels do 9 products of
-// 2 hd FLOP over the causal band (2 for D, 3 more for dQ, 4 for dK and
-// dV): 9 * 2 * 80 * 32 * 2 * 4096 * 4097 / 2 = 387 GFLOP, 0.39 ms at the
-// bf16 tensor cores' 989 TFLOP/s (5.8 ms at the f32 rate these FMAs
-// run at).  Tensor cores (wgmma) and TMA are later work.
+// in flash_bwd_tile.cuh.  Products: 16 x 16 threads, each a 4 x 4
+// register tile of a 64 x 64 score tile (rows tr + 16i, columns
+// tc + 16j), operands transposed in shared memory with a padded row
+// (LD = 65), f32 FMAs on the CUDA cores: the float32 route is held to
+// 1e-4 of the plain backward, which TF32 or bf16 products would not
+// meet.  They do 9 products a pair (2 for D, 3 more for dQ, 4 for dK and
+// dV), 773 GFLOP, 11.5 ms at the f32 rate of 67 TFLOP/s at the shape
+// above.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "flash_bwd_hopper.cuh"
 #include "flash_bwd_tile.cuh"
 #include "flash_tile.cuh"
 
@@ -390,27 +404,42 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+std::atomic<int> last_route{-1};   // 1 tensor cores, 0 FMA, -1 none yet
+
 }  // namespace
 
 // The backward of flash_attention_fwd: q, k, v, dout and the forward's
 // lse in, dq, dk, dv out (the inputs' type), D (B, H, S) float32 as
-// scratch.  Two launches on `stream`, dq's kernel first; returns the
-// first non-zero cudaError_t (0 on success).  Refuses what the forward
-// refuses.
+// scratch; `o32`, the forward's output in f32 (null where it was not
+// kept), lets bf16 calls take the tensor-core route.  Two launches on
+// `stream`, dq's kernel first; returns the first non-zero cudaError_t
+// (0 on success).  Refuses what the forward refuses.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
-                                   const float* lse, float* dsum, void* dq,
-                                   void* dk, void* dv, int B, int S, int Tk,
-                                   int H, int KV, int hd, int causal,
-                                   int window, int bf16, void* stream) {
+                                   const float* o32, const float* lse,
+                                   float* dsum, void* dq, void* dk, void* dv,
+                                   int B, int S, int Tk, int H, int KV,
+                                   int hd, int causal, int window, int bf16,
+                                   void* stream) {
   if (hd < 1 || hd > MAX_HD || KV < 1 || H % KV != 0 || B * H > 65535 ||
       Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, lse, dsum, dq, dk, dv,
-                                        B, S, Tk, H, KV, hd, causal, window,
-                                        st)
-              : dispatch<float>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S,
-                                Tk, H, KV, hd, causal, window, st);
+  const bool tc =
+      bf16 && fa_hopper_bwd::takes(q, k, v, dout, o32, dq, dk, dv, hd);
+  const int err =
+      tc ? fa_hopper_bwd::dispatch(q, k, v, dout, o32, lse, dsum, dq, dk, dv,
+                                   B, S, Tk, H, KV, hd, causal, window, st)
+      : bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                       B, S, Tk, H, KV, hd, causal, window,
+                                       st)
+             : dispatch<float>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S,
+                               Tk, H, KV, hd, causal, window, st);
+  if (err == 0) last_route.store(tc ? 1 : 0);
+  return err;
 }
+
+// The route of the latest launch in this process: 1 the tensor-core
+// kernels, 0 the FMA kernels, -1 before the first.
+extern "C" int flash_attention_bwd_last_route() { return last_route.load(); }

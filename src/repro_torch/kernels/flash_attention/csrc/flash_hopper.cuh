@@ -169,8 +169,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int S, int Tk, int H, int KV, int hd, float scale,
-                     int causal, int window) {
+                     float* __restrict__ o32, int S, int Tk, int H, int KV,
+                     int hd, float scale, int causal, int window) {
   constexpr int NDB = d_boxes(HDP);
   constexpr int KSTEPS = HDP / 16;        // k-steps of Q.K^T over d
   extern __shared__ uint8_t smem_raw[];
@@ -353,7 +353,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // ---- O / l, rounded to bf16 ----------------------------------------------
   const int64_t q_row = static_cast<int64_t>(H) * hd;
-  __nv_bfloat16* ob = o + (static_cast<int64_t>(b) * S * H + h) * hd;
+  const int64_t head = (static_cast<int64_t>(b) * S * H + h) * hd;
+  __nv_bfloat16* ob = o + head;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
@@ -369,9 +370,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int col = 8 * j + col0;   // hd even: col < hd -> col + 1 < hd
       if (col >= hd) continue;
       __nv_bfloat162 pair;
-      pair.x = __float2bfloat16(acc[4 * j + 2 * r] * inv);
-      pair.y = __float2bfloat16(acc[4 * j + 2 * r + 1] * inv);
+      const float2 out = make_float2(acc[4 * j + 2 * r] * inv,
+                                     acc[4 * j + 2 * r + 1] * inv);
+      pair.x = __float2bfloat16(out.x);
+      pair.y = __float2bfloat16(out.y);
       *reinterpret_cast<__nv_bfloat162*>(ob + qi * q_row + col) = pair;
+      // the f32 output for the backward's D, where asked for
+      if (o32 != nullptr)
+        *reinterpret_cast<float2*>(o32 + head + qi * q_row + col) = out;
     }
   }
 }
@@ -398,8 +404,8 @@ inline CUresult make_map(CUtensorMap* map, const void* ptr, int hd,
 
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int Tk, int H, int KV, int hd, int causal,
-           int window, cudaStream_t stream) {
+           float* o32, int B, int S, int Tk, int H, int KV, int hd,
+           int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (make_map(&tq, q, hd, H, S, B) != CUDA_SUCCESS ||
       make_map(&tk, k, hd, KV, Tk, B) != CUDA_SUCCESS ||
@@ -412,8 +418,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_hopper<HDP><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, KV, hd,
-      1.0f / sqrtf(static_cast<float>(hd)), causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, o32, S, Tk, H, KV,
+      hd, 1.0f / sqrtf(static_cast<float>(hd)), causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,17 +435,17 @@ inline bool takes(const void* q, const void* k, const void* v,
 }
 
 inline int dispatch(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int S, int Tk, int H, int KV, int hd,
-                    int causal, int window, cudaStream_t st) {
+                    float* lse, float* o32, int B, int S, int Tk, int H,
+                    int KV, int hd, int causal, int window, cudaStream_t st) {
   switch ((hd + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 2: return launch<32>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 3: return launch<48>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 4: return launch<64>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 5: return launch<80>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 6: return launch<96>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 7: return launch<112>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
-    case 8: return launch<128>(q, k, v, o, lse, B, S, Tk, H, KV, hd, causal, window, st);
+    case 1: return launch<16>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 2: return launch<32>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 3: return launch<48>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 4: return launch<64>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 5: return launch<80>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 6: return launch<96>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 7: return launch<112>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
+    case 8: return launch<128>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,8 +7,8 @@ its backward ``csrc/ssd_intra_chunk_bwd.cu`` (``ssd_intra_chunk_bwd``);
 for CPU tensors both directions run the plain version
 (``ref.intra_chunk_ref``, ``ref.intra_chunk_bwd_ref``).  There is no
 fallback from one to the other.  ``ssd_intra_chunk.launches`` and
-``ssd_intra_chunk_bwd.launches`` count the kernel launches (two a
-backward call: the per-item kernel, then the per-chunk one);
+``ssd_intra_chunk_bwd.launches`` count the kernel launches (one a
+backward call: a block per chunk walks its heads);
 ``route(P, N)`` names the forward kernel's route for a shape,
 ``last_route()`` the route of its latest launch, ``shared_memory`` its
 shared memory a block.
@@ -25,7 +25,7 @@ from .ref import intra_chunk_bwd_ref, intra_chunk_ref
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 128, 128
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
-_BWD_ARGTYPES = [_P] * 12 + [_I] * 5 + [_P]
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 5 + [_P]
 
 
 def _check(x, dt, cum, Bm, Cm) -> None:
@@ -82,7 +82,7 @@ def _launch(x, dt, cum, Bm, Cm, *, out=None) -> torch.Tensor:
 
 
 def _launch_bwd(x, dt, cum, Bm, Cm, dy, *, grads=None):
-    """The backward kernels: (dx, ddt, dcum, dB, dC).  ``grads`` (five
+    """The backward kernel: (dx, ddt, dcum, dB, dC).  ``grads`` (five
     contiguous float32 tensors shaped as the inputs) receive them if
     given."""
     G, L, H, P = x.shape
@@ -93,14 +93,13 @@ def _launch_bwd(x, dt, cum, Bm, Cm, dy, *, grads=None):
     ins = [t.contiguous() for t in (x, dt, cum, Bm, Cm, dy)]
     outs = grads if grads is not None else [torch.empty_like(t)
                                             for t in ins[:5]]
-    part = torch.empty(G, H, L, L, dtype=torch.float32, device=x.device)
     dx, ddt, dcum, dB, dC = outs
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(*(t.data_ptr() for t in ins), dx.data_ptr(),
                     ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(),
-                    dC.data_ptr(), part.data_ptr(), G, L, H, P, N, stream),
+                    dC.data_ptr(), G, L, H, P, N, stream),
                  "ssd_intra_chunk_bwd")
-    ssd_intra_chunk_bwd.launches += 2
+    ssd_intra_chunk_bwd.launches += 1
     return dx, ddt, dcum, dB, dC
 
 
@@ -133,7 +132,7 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor,
                         cum: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                         dy: torch.Tensor):
     """(dx, ddt, dcum, dB, dC) of ``ssd_intra_chunk`` given dy: the
-    backward kernels for CUDA tensors, the plain backward for CPU
+    backward kernel for CUDA tensors, the plain backward for CPU
     tensors."""
     _check(x, dt, cum, Bm, Cm)
     return _backward(x, dt, cum, Bm, Cm, dy)
@@ -146,7 +145,7 @@ def _backward(x, dt, cum, Bm, Cm, dy):
 
 
 class _SSD(torch.autograd.Function):
-    """The forward kernel and, for the gradient, the backward kernels;
+    """The forward kernel and, for the gradient, the backward kernel;
     inputs are kept only when a gradient is wanted."""
 
     @staticmethod

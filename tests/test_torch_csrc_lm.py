@@ -592,11 +592,13 @@ def test_ssd_f64_walk_is_nearer_the_oracle_than_plain(lib, L, P, N):
 
 BWD_SHIM = r"""
 #include <math.h>
+#include <stdint.h>
 #include <algorithm>
 #include <vector>
 #include "flash_tile.cuh"
 #include "flash_bwd_tile.cuh"
 #include "ssd_bwd_tile.cuh"
+#include "ssd_tile.cuh"
 extern "C" {
 // One batch: q, dout (S, H, hd); k, v (T, KV, hd); lse (H, S).  The
 // forward's row log-sum-exp as its kernels write it.
@@ -706,58 +708,194 @@ void h_flash_bwd(const float* q, const float* k, const float* v,
     }
 }
 
-// One chunk: x, dy (L, H, P); dt, cum (L, H); B, C (L, N).  The per-item
-// kernel for every head (pair terms, dx, ddt, dcum and the head's share
-// of dCB), then the per-chunk kernel (dCB over the heads in order, dC,
-// dB), every sum in double as the kernels take them.
+// bf16 terms of x: the values the tensor cores multiply
+static void split_terms(float x, float& hi, float& lo) {
+  uint16_t h, l;
+  fa::split_bf16(x, h, l);
+  hi = fa::bf16_value(h);
+  lo = fa::bf16_value(l);
+}
+
+// The tensor-core route's walk (flash_bwd_hopper.cuh) for bf16 inputs
+// (given as floats): O in f32 from lse, D_i = dO_i . O_i summed as the
+// kernel's four lanes of a row do, then the dQ kernel over blocks of bq
+// query rows and their live k-tiles of 64 and the dK/dV kernel over
+// blocks of bk keys, the group's heads and their live q-tiles of 64;
+// probabilities in log2 units against lse, P and dS as two bf16 terms
+// into f32 sums.
+void h_flash_bwd_split(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse, float* dq,
+                       float* dk, float* dv, float* dsum, int S, int T, int H,
+                       int KV, int hd, int causal, int window, int bq,
+                       int bk) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const float c = scale * fa::LOG2E;
+  const int group = H / KV;
+  auto qr = [&](const float* t, int i, int h) { return t + (i * H + h) * hd; };
+  auto kr = [&](const float* t, int j, int h) { return t + (j * KV + h) * hd; };
+  auto prob = [&](int i, int j, int h, float m2) {
+    const float s = dot_rows(qr(q, i, h), kr(k, j, h / group), hd);
+    return fa::prob_log2(s, c, m2, fa::in_band(i, j, T, causal, window));
+  };
+  std::vector<float> o(hd);
+  for (int h = 0; h < H; ++h)
+    for (int i = 0; i < S; ++i) {
+      const float m2 = lse[h * S + i] * fa::LOG2E;
+      std::fill(o.begin(), o.end(), 0.0f);
+      for (int j = 0; j < T; ++j) {
+        const float p = prob(i, j, h, m2);
+        for (int d = 0; d < hd; ++d)
+          o[d] = fmaf(p, kr(v, j, h / group)[d], o[d]);
+      }
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int t = 0; t < 4; ++t)
+        for (int col = 2 * t; col < hd; col += 8) {
+          part[t] = fmaf(qr(dout, i, h)[col], o[col], part[t]);
+          part[t] = fmaf(qr(dout, i, h)[col + 1], o[col + 1], part[t]);
+        }
+      dsum[h * S + i] = (part[0] + part[1]) + (part[2] + part[3]);
+    }
+  for (int h = 0; h < H; ++h)
+    for (int q_lo = 0; q_lo < S; q_lo += bq) {
+      const int q_hi = std::min(q_lo + bq, S) - 1;
+      for (int i = q_lo; i <= q_hi; ++i) {
+        const float m2 = lse[h * S + i] * fa::LOG2E;
+        std::vector<float> acc(hd, 0.0f);
+        for (int k_lo = 0; k_lo < T; k_lo += 64) {
+          if (!fa::tile_live(q_lo, q_hi, k_lo, std::min(k_lo + 64, T) - 1,
+                             causal, window))
+            continue;
+          for (int j = k_lo; j < std::min(k_lo + 64, T); ++j) {
+            const float dp = dot_rows(qr(dout, i, h), kr(v, j, h / group), hd);
+            float hi, lo;
+            split_terms(fab::dscore(prob(i, j, h, m2), dp, dsum[h * S + i]),
+                        hi, lo);
+            for (int d = 0; d < hd; ++d) {
+              acc[d] = fmaf(hi, kr(k, j, h / group)[d], acc[d]);
+              acc[d] = fmaf(lo, kr(k, j, h / group)[d], acc[d]);
+            }
+          }
+        }
+        for (int d = 0; d < hd; ++d) dq[(i * H + h) * hd + d] = acc[d] * scale;
+      }
+    }
+  for (int kvh = 0; kvh < KV; ++kvh)
+    for (int k_lo = 0; k_lo < T; k_lo += bk) {
+      const int k_hi = std::min(k_lo + bk, T) - 1;
+      for (int j = k_lo; j <= k_hi; ++j) {
+        std::vector<float> ak(hd, 0.0f), av(hd, 0.0f);
+        for (int g = 0; g < group; ++g) {
+          const int h = kvh * group + g;
+          for (int q_lo = 0; q_lo < S; q_lo += 64) {
+            const int q_hi = std::min(q_lo + 64, S) - 1;
+            if (!fa::tile_live(q_lo, q_hi, k_lo, k_hi, causal, window))
+              continue;
+            for (int i = q_lo; i <= q_hi; ++i) {
+              const float p = prob(i, j, h, lse[h * S + i] * fa::LOG2E);
+              const float dp = dot_rows(qr(dout, i, h), kr(v, j, kvh), hd);
+              float p_hi, p_lo, s_hi, s_lo;
+              split_terms(p, p_hi, p_lo);
+              split_terms(fab::dscore(p, dp, dsum[h * S + i]), s_hi, s_lo);
+              for (int d = 0; d < hd; ++d) {
+                av[d] = fmaf(p_hi, qr(dout, i, h)[d], av[d]);
+                av[d] = fmaf(p_lo, qr(dout, i, h)[d], av[d]);
+                ak[d] = fmaf(s_hi, qr(q, i, h)[d], ak[d]);
+                ak[d] = fmaf(s_lo, qr(q, i, h)[d], ak[d]);
+              }
+            }
+          }
+        }
+        for (int d = 0; d < hd; ++d) {
+          dk[(j * KV + kvh) * hd + d] = ak[d] * scale;
+          dv[(j * KV + kvh) * hd + d] = av[d];
+        }
+      }
+    }
+}
+
+// One chunk: x, dy (L, H, P); dt, cum (L, H); B, C (L, N).  The kernel's
+// walk (ssd_intra_chunk_bwd.cu): C.B^T once on its tile cover, then per
+// head in order ds on the same tiles, the pair terms, s^T, d(C.B^T)
+// added per pair, the tiles' column and row sums and their sums in the
+// kernel's order, dx over i >= j from each strip's first k-step; after
+// the last head dC and dB over the kernel's k-ranges.  Every sum in
+// double, rows past L read as 0.
 void h_ssd_bwd(const float* x, const float* dt, const float* cum,
                const float* B, const float* C, const float* dy, float* dx,
                float* ddt, float* dcum, float* dB, float* dC, int L, int H,
                int P, int N) {
-  std::vector<float> part(H * L * L);
-  std::vector<double> s(L * L), v(L * L), w(L * L);
+  const int M = ssd::MAX_L, K = ssdb::ksteps(L);
+  auto row = [&](const float* t, int i, int h, int width, int stride, int e) {
+    return i < L ? double(t[(i * stride + h) * width + e]) : 0.0;
+  };
+  std::vector<double> cb(M * M, 0.0), dcb(M * M, 0.0);
+  for (int q = 0; q < ssd::CB_TILES; ++q) {
+    int r, c;
+    ssd::cb_tile(q, r, c);
+    if (!ssdb::tile_in(r, c, L)) continue;
+    for (int i = 16 * r; i < 16 * r + 16; ++i)
+      for (int j = 8 * c; j < 8 * c + 8; ++j)
+        for (int n = 0; n < N; ++n)
+          cb[i * M + j] = fma(row(C, i, 0, N, 1, n), row(B, j, 0, N, 1, n),
+                              cb[i * M + j]);
+  }
   for (int h = 0; h < H; ++h) {
-    for (int i = 0; i < L; ++i)
-      for (int j = 0; j < L; ++j) {
-        double cb = 0.0, ds = 0.0;
-        for (int n = 0; n < N; ++n) cb = fma(double(C[i * N + n]), double(B[j * N + n]), cb);
-        for (int p = 0; p < P; ++p)
-          ds = fma(double(dy[(i * H + h) * P + p]), double(x[(j * H + h) * P + p]), ds);
-        double dcb;
-        ssdb::pair_grads<double>(cb, cum[i * H + h], cum[j * H + h],
-                                 dt[j * H + h], ds, i, j, s[i * L + j],
-                                 v[i * L + j], w[i * L + j], dcb);
-        part[(h * L + i) * L + j] = static_cast<float>(dcb);
+    std::vector<double> sT(M * M, 0.0), colv(4 * M, 0.0), colw(4 * M, 0.0),
+        roww(8 * M, 0.0);
+    auto tval = [&](const float* t, int i) {
+      return i < L ? double(t[i * H + h]) : 0.0;
+    };
+    for (int q = 0; q < ssd::CB_TILES; ++q) {
+      int r, c;
+      ssd::cb_tile(q, r, c);
+      if (!ssdb::tile_in(r, c, L)) continue;
+      for (int i = 16 * r; i < 16 * r + 16; ++i)
+        for (int j = 8 * c; j < 8 * c + 8; ++j) {
+          double ds = 0.0;
+          for (int p = 0; p < P; ++p)
+            ds = fma(row(dy, i, h, P, H, p), row(x, j, h, P, H, p), ds);
+          double sv, v, w, d;
+          ssdb::pair_grads<double>(cb[i * M + j], tval(cum, i), tval(cum, j),
+                                   tval(dt, j), ds, i < L ? i : -1, j, sv, v,
+                                   w, d);
+          sT[j * M + i] = sv;
+          dcb[i * M + j] += d;
+          colv[r * M + j] += v;
+          colw[r * M + j] += w;
+          roww[c * M + i] += w;
+        }
+    }
+    for (int r = 0; r < 4 && 16 * r < L; ++r)
+      for (int j = 16 * r; j < std::min(16 * r + 16, L); ++j)
+        for (int p = 0; p < P; ++p) {
+          double a = 0.0;
+          for (int i = 8 * ssdb::kstep_lo(r); i < 8 * K; ++i)
+            a = fma(sT[j * M + i], row(dy, i, h, P, H, p), a);
+          dx[(j * H + h) * P + p] = static_cast<float>(a);
+        }
+    for (int k = 0; k < L; ++k) {
+      double vs = 0.0, col = 0.0, rw = 0.0;
+      for (int r = ssdb::first_strip(k); r < 4 && 16 * r < L; ++r) {
+        vs += colv[r * M + k];
+        col += colw[r * M + k];
       }
-    for (int j = 0; j < L; ++j) {
-      for (int p = 0; p < P; ++p) {
-        double a = 0.0;
-        for (int i = 0; i < L; ++i) a = fma(s[i * L + j], double(dy[(i * H + h) * P + p]), a);
-        dx[(j * H + h) * P + p] = static_cast<float>(a);
-      }
-      double vs = 0.0, row = 0.0, col = 0.0;
-      for (int i = 0; i < L; ++i) {
-        vs += v[i * L + j];
-        col += w[i * L + j];
-        row += w[j * L + i];
-      }
-      ddt[j * H + h] = static_cast<float>(vs);
-      dcum[j * H + h] = static_cast<float>(row - col);
+      for (int c = 0; c < ssdb::row_tiles(k) && 8 * c < L; ++c)
+        rw += roww[c * M + k];
+      ddt[k * H + h] = static_cast<float>(vs);
+      dcum[k * H + h] = static_cast<float>(rw - col);
     }
   }
-  std::vector<double> dcb(L * L, 0.0);
-  for (int h = 0; h < H; ++h)
-    for (int e = 0; e < L * L; ++e) dcb[e] += part[h * L * L + e];
-  for (int r = 0; r < L; ++r)
-    for (int n = 0; n < N; ++n) {
-      double c_ = 0.0, b_ = 0.0;
-      for (int m = 0; m < L; ++m) {
-        c_ = fma(dcb[r * L + m], double(B[m * N + n]), c_);
-        b_ = fma(dcb[m * L + r], double(C[m * N + n]), b_);
+  for (int r = 0; r < 4 && 16 * r < L; ++r)
+    for (int i = 16 * r; i < std::min(16 * r + 16, L); ++i)
+      for (int n = 0; n < N; ++n) {
+        double c_ = 0.0, b_ = 0.0;
+        for (int j = 0; j < 8 * ssd::strip_ksteps(r, L); ++j)
+          c_ = fma(dcb[i * M + j], row(B, j, 0, N, 1, n), c_);
+        for (int m = 8 * ssdb::kstep_lo(r); m < 8 * K; ++m)
+          b_ = fma(dcb[m * M + i], row(C, m, 0, N, 1, n), b_);
+        dC[i * N + n] = static_cast<float>(c_);
+        dB[i * N + n] = static_cast<float>(b_);
       }
-      dC[r * N + n] = static_cast<float>(c_);
-      dB[r * N + n] = static_cast<float>(b_);
-    }
 }
 }
 """
@@ -828,6 +966,43 @@ def test_flash_bwd_walk_matches_plain(bwd_lib, S, T, H, KV, hd, causal,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window,bq,bk", [
+    (200, 200, 2, 2, 80, True, None, 128, 128),  # ragged, two d boxes
+    (130, 130, 4, 2, 24, False, None, 128, 128),  # GQA, hd not 16k
+    (300, 300, 2, 1, 64, True, 70, 128, 128),   # window, skipped tiles
+    (100, 260, 2, 2, 16, False, 40, 128, 128),  # S < T
+])
+def test_flash_bf16_bwd_walk_matches_plain(bwd_lib, S, T, H, KV, hd, causal,
+                                           window, bq, bk):
+    """The tensor-core backward's arithmetic on the host (D from an f32
+    O, P and dS as two bf16 terms each, probabilities in log2 units)
+    against the plain backward on the same bf16 inputs, at the card's
+    bounds: 2e-2, and two bf16 steps of each element once rounded to
+    bf16 as the kernel's gradients are."""
+    rng = np.random.default_rng(S + T + hd + 1)
+    q, dout = (torch.from_numpy(rng.standard_normal((S, H, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in "qo")
+    k, v = (torch.from_numpy(rng.standard_normal((T, KV, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in "kv")
+    qf, kf, vf, of = (np.ascontiguousarray(t.float().numpy())
+                      for t in (q, k, v, dout))
+    lse = np.ascontiguousarray(_plain_lse(qf, kf, causal, window)
+                               .astype(np.float32))
+    dq, dk, dv = np.empty_like(qf), np.empty_like(kf), np.empty_like(vf)
+    dsum = np.empty((H, S), np.float32)
+    bwd_lib.h_flash_bwd_split(_p(qf), _p(kf), _p(vf), _p(of), _p(lse),
+                              _p(dq), _p(dk), _p(dv), _p(dsum), S, T, H, KV,
+                              hd, int(causal), window or 0, bq, bk)
+    want = attention_bwd_ref(*(t[None] for t in (q, k, v, dout)),
+                             causal=causal, window=window)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        got = torch.from_numpy(got).to(torch.bfloat16).float()
+        w = w[0].float()
+        torch.testing.assert_close(got, w, rtol=2e-2, atol=2e-2, msg=name)
+        torch.testing.assert_close(got, w, rtol=2.0 ** -6, atol=1e-5,
+                                   msg=name)
+
+
 def test_flash_lse_marks_rows_without_keys(bwd_lib):
     """A row with no key in band gets lse = +inf, so that every
     probability the backward recomputes for it is 0."""
@@ -843,9 +1018,11 @@ def test_flash_lse_marks_rows_without_keys(bwd_lib):
 
 @pytest.mark.parametrize("L,H,P,N", [(64, 3, 16, 8), (40, 2, 8, 16),
                                      (17, 4, 5, 3), (1, 2, 4, 4),
-                                     (64, 2, 32, 32)])
+                                     (64, 2, 32, 32), (64, 5, 24, 40),
+                                     (33, 3, 7, 5), (48, 2, 50, 70)])
 def test_ssd_bwd_walk_matches_plain(bwd_lib, L, H, P, N):
-    """The two kernels' walk (double sums) against the plain backward at
+    """The kernel's walk (its lower-triangle tile cover, d(C.B^T) summed
+    over the heads in order, double sums) against the plain backward at
     1e-5 and against its float64 run at 1e-6: the walk is the nearer."""
     from repro_torch.kernels.mamba2_scan.ref import intra_chunk_bwd_ref
     rng = np.random.default_rng(L * H + P)

@@ -512,7 +512,19 @@ FLASH_BWD_CASES = [  # (B, S, T, H, KV, hd, dtype, causal, window)
     (1, 190, 190, 8, 2, 80, torch.float32, True, None),
     (1, 70, 200, 4, 2, 80, torch.float32, False, None),    # S < T
     (1, 64, 150, 4, 4, 80, torch.bfloat16, False, 40),     # S < T, window
+    (1, 1000, 1000, 4, 4, 80, torch.bfloat16, True, None),  # ragged
+    (1, 256, 256, 8, 2, 80, torch.bfloat16, True, None),    # GQA
+    # GQA over 4 heads x 2048 queries: dK and dV sum 1,024 tensor-core
+    # k-steps a key, where the tensor cores' own f32 sums drift
+    (1, 2048, 2048, 8, 2, 80, torch.bfloat16, True, None),
+    (1, 100, 100, 2, 2, 20, torch.bfloat16, True, None),    # bf16 FMA route
 ]
+
+
+def _bwd_route(dtype, hd):
+    """The backward's route for fresh (aligned) tensors: the tensor cores
+    for bf16 with head_dim a multiple of 8, the FMA kernels otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 else "fma"
 
 
 def _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=0):
@@ -537,9 +549,14 @@ def test_flash_lse_matches_plain_logsumexp(gpu, B, S, T, H, KV, hd, dtype,
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import expand_kv
     q, k, v, _ = _flash_case(gpu, B, S, T, H, KV, hd, dtype)
-    out, lse = ops._launch(q, k, v, causal, window, lse=True)
-    plain, _ = ops._launch(q, k, v, causal, window)
+    out, lse, out32 = ops._launch(q, k, v, causal, window, lse=True)
+    plain, _, _ = ops._launch(q, k, v, causal, window)
     assert torch.equal(out, plain)      # serving's output is unchanged
+    # the f32 output is kept where the tensor-core backward reads it, and
+    # rounds to the output
+    assert (out32 is not None) == (_bwd_route(dtype, hd) == "wgmma")
+    if out32 is not None:
+        assert torch.equal(out32.to(dtype), out)
     logits = torch.einsum("bhsd,bhtd->bhst", q.transpose(1, 2).double(),
                           expand_kv(k, H).double()) / hd ** 0.5
     i = torch.arange(S, device=gpu)[:, None]
@@ -559,12 +576,14 @@ def test_flash_bwd_kernels_match_plain(gpu, B, S, T, H, KV, hd, dtype,
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, dout = _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=S)
-    _, lse = ops._launch(q, k, v, causal, window, lse=True)
+    _, lse, out32 = ops._launch(q, k, v, causal, window, lse=True)
     before = ops.attention_bwd.launches
-    got = ops.attention_bwd(q, k, v, dout, lse, causal=causal, window=window)
+    got = ops.attention_bwd(q, k, v, dout, lse, causal=causal, window=window,
+                            out32=out32)
     assert ops.attention_bwd.launches == before + 2
+    assert ops.last_bwd_route() == _bwd_route(dtype, hd)
     again = ops.attention_bwd(q, k, v, dout, lse, causal=causal,
-                              window=window)
+                              window=window, out32=out32)
     want = attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
     for a, b, w, t in zip(got, again, want, (q, k, v)):
         assert a.dtype == t.dtype and a.shape == t.shape
@@ -584,7 +603,7 @@ def test_ssd_bwd_kernels_match_plain(gpu, G, L, H, P, N):
                      generator=torch.Generator(device=gpu).manual_seed(9))
     before = ops.ssd_intra_chunk_bwd.launches
     got = ops.ssd_intra_chunk_bwd(*ins, dy)
-    assert ops.ssd_intra_chunk_bwd.launches == before + 2
+    assert ops.ssd_intra_chunk_bwd.launches == before + 1
     again = ops.ssd_intra_chunk_bwd(*ins, dy)
     want = intra_chunk_bwd_ref(*ins, dy)
     for name, a, b, w in zip(("dx", "ddt", "dcum", "dB", "dC"), got, again,
@@ -604,7 +623,7 @@ def test_lm_kernels_write_every_output_and_read_no_stale_shared_memory(
     and equal to a launch into fresh memory; with ``poison`` every SM's
     shared memory holds NaN before each launch, so a read of a word the
     kernel never wrote shows too.  All four LM kernels, both flash
-    routes."""
+    routes forward and backward."""
     from repro_torch.kernels.common import poison_shared_memory
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.mamba2_scan import ops as so
@@ -628,14 +647,18 @@ def test_lm_kernels_write_every_output_and_read_no_stale_shared_memory(
             assert torch.equal(a, b), (G, L, H, P, N)
     for B, S, T, H, KV, hd, dtype, causal, window in FLASH_BWD_CASES:
         q, k, v, dout = _flash_case(gpu, B, S, T, H, KV, hd, dtype, seed=3)
-        fresh, lse = fo._launch(q, k, v, causal, window, lse=True)
+        fresh, lse, o32 = fo._launch(q, k, v, causal, window, lse=True)
         before_launch()
-        out, rows = fo._launch(q, k, v, causal, window, lse=True,
-                               out=_nan_like(q), rows=_nan_like(lse))
+        out, rows, rows32 = fo._launch(
+            q, k, v, causal, window, lse=True, out=_nan_like(q),
+            rows=_nan_like(lse),
+            out32=None if o32 is None else _nan_like(o32))
         assert torch.equal(out, fresh) and torch.equal(rows, lse)
-        fresh = fo._launch_bwd(q, k, v, dout, lse, causal, window)
+        assert (o32 is None and rows32 is None) or torch.equal(rows32, o32)
+        fresh = fo._launch_bwd(q, k, v, dout, lse, causal, window, out32=o32)
+        assert fo.last_bwd_route() == _bwd_route(dtype, hd)
         before_launch()
-        got = fo._launch_bwd(q, k, v, dout, lse, causal, window,
+        got = fo._launch_bwd(q, k, v, dout, lse, causal, window, out32=o32,
                              grads=[_nan_like(t) for t in (q, k, v)])
         for a, b in zip(got, fresh):
             assert torch.equal(a, b), (B, S, H, KV, hd, dtype)
@@ -678,7 +701,7 @@ def test_smoke_train_step_on_gpu_matches_cpu(gpu, remat):
         for k in ("loss", "grad_norm"):
             assert outs[0][k] == pytest.approx(outs[1][k], rel=1e-4, abs=1e-4)
     assert attention_bwd.launches - f0 == 2 * 2 * 2     # 2 steps x 2 apps
-    assert ssd_intra_chunk_bwd.launches - s0 == 2 * 4 * 2
+    assert ssd_intra_chunk_bwd.launches - s0 == 2 * 4 * 1
     for (n, a), b in zip(states[0][1].params.named_parameters(),
                          states[1][1].params.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,

@@ -169,7 +169,7 @@ def test_no_fallback_when_the_kernels_fail(monkeypatch):
     # a forward that "launched", then a backward whose launch fails
     monkeypatch.setattr(ops, "_launch", lambda q, *a, lse=False, **k: (
         torch.zeros_like(q), torch.zeros(q.shape[0], q.shape[2], q.shape[1])
-        if lse else None))
+        if lse else None, None))
     monkeypatch.setattr(ops, "_launch_bwd", boom)
     q.requires_grad_(True)
     out = attention(q, k, v)

@@ -114,14 +114,16 @@ def _stub_launchers(monkeypatch, calls):
     """The card's dispatch on CPU tensors: the launchers stubbed by the
     plain versions, each launch recorded (and counted, as the real
     launchers count)."""
-    def flash(q, k, v, causal, window, *, lse=False, out=None, rows=None):
+    def flash(q, k, v, causal, window, *, lse=False, out=None, rows=None,
+              out32=None):
         calls.append(("flash", lse))
         fo.attention.launches += 1
         o = fo.attention_plain(q, k, v, causal=causal, window=window)
         return o, (torch.zeros(q.shape[0], q.shape[2], q.shape[1])
-                   if lse else None)
+                   if lse else None), None
 
-    def flash_bwd(q, k, v, dout, lse, causal, window, *, grads=None):
+    def flash_bwd(q, k, v, dout, lse, causal, window, *, out32=None,
+                  grads=None):
         calls.append(("flash_bwd", lse is not None))
         fo.attention_bwd.launches += 2
         return fo.attention_bwd_ref(q, k, v, dout, causal=causal,
@@ -134,7 +136,7 @@ def _stub_launchers(monkeypatch, calls):
 
     def ssd_bwd(*args, grads=None):
         calls.append(("ssd_bwd", None))
-        so.ssd_intra_chunk_bwd.launches += 2
+        so.ssd_intra_chunk_bwd.launches += 1
         return so.intra_chunk_bwd_ref(*args)
 
     for mod in (fo, so):
