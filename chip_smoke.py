@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the CGRA estimator's
-DSE sweep and zamba2-2.7b serving.
+DSE sweep, zamba2-2.7b serving and training, and serving the
+decoder-only transformer families (dense, MoE, VLM).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -74,7 +75,12 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    also within two bf16 steps of each element), timed beside its
    plain version and scaled_dot_product_attention: the bf16 route (the
    tensor-core kernel) and the f32 route (the FMA kernel) at the main
-   shape;
+   shape; every case prints the route that ran; then the transformer
+   families' bf16 causal prefill shapes on the tensor-core route (held
+   as above, timed beside scaled_dot_product_attention and the bound of
+   their live pairs at 989 TFLOP/s): llama3.2-1b (1, 2048, 32, 64) kv 8,
+   qwen2-vl-7b (1, 2048, 28, 128) kv 4, starcoder2-15b (1, 4608, 48,
+   128) kv 4 with its 4,096-token window;
 6. the intra-chunk SSD kernel against its plain version at
    (G, L=64, H=80, P=64, N=64) f32 for G = 32, 14 and 5 (a 2048-token
    prompt, the serving run's mean, its smallest), rtol = atol = 2e-5,
@@ -108,8 +114,29 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    with the same weights: loss, grad_norm, every parameter at 1e-3;
    (d) the smoke trainer killed at step 4 (exit 42) and resumed on the
    card: steps 5-8 equal an uninterrupted run at 1e-5;
-10. one {"kernels": [...]} line with times, bounds and launch counts;
-11. the last line {"ok": true, "device": {...}}.
+10. the transformer families' main path: llama3.2-1b at full width and
+   depth (16 layers, d_model 2048, 32 heads of 64, kv 8, vocab 128,256,
+   tied embeddings; seeded weights, bf16 activations), a Server with 4
+   slots and context 4096 answering 8 requests of seeded prompt lengths
+   in 256-2048 with 32 greedy tokens; exact launch counts (16 x 8 = 128
+   flash, 0 SSD), finite logits, prefill tokens/s, decode ms per step
+   and tokens/s, peak memory;
+10b. the other six configs at full width, each a Server with 2 slots
+   answering 2 requests of 16 greedy tokens: granite-moe-1b-a400m,
+   olmo-1b and smollm-360m on 512-token prompts, qwen2-vl-7b on 512
+   with 256 seeded patch embeds a request through admit(extras=),
+   starcoder2-15b (40 layers) and mixtral-8x22b (2 of its 56 layers: 524
+   GiB of f32 weights at full depth) on 4,608-token prompts past their
+   4,096-token window, context 8192; the same checks and numbers each;
+10c. card against host as phase 8: llama3.2-1b, granite-moe-1b-a400m
+   and qwen2-vl-7b (with patch embeds) at full width cut to 2 layers,
+   f32, prompts of 256 and 200 tokens, 8 teacher-forced decode steps, at
+   1e-3, the MoE's chosen experts compared first (a mismatch names the
+   layer, the token and the probability gap); then all seven smoke
+   configs at 1e-4;
+11. one {"kernels": [...]} line with times, bounds and launch counts
+   (flash: this slice's main path, phase 10; SSD: phase 7);
+12. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1081,7 +1108,7 @@ def flash_phase(dev) -> dict:
     """Phase 5: the flash-attention kernel against its plain version."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import attention, last_route
     from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1111,12 +1138,15 @@ def flash_phase(dev) -> dict:
         ("window=512", 1, 2048, 32, 32, 80, torch.float32, True, 512),
         ("GQA 32/8 bf16", 1, 2048, 32, 8, 80, torch.bfloat16, True, None),
     ]
-    main_err = None
-    for name, B, S, H, KV, hd, dtype, causal, window in cases:
-        q, k, v = inputs(B, S, H, KV, hd, dtype)
+
+    def hold(name, q, k, v, causal, window):
+        """The kernel against its plain version: (max abs err, the route
+        that ran); fails past the tolerance."""
         got = attention(q, k, v, causal=causal, window=window)
+        ran = last_route()
         want = plain(q, k, v, causal, window)
         torch.cuda.synchronize()
+        dtype = q.dtype
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         err = float((got.float() - want.float()).abs().max())
         check(bool(torch.allclose(got.float(), want.float(), rtol=tol,
@@ -1133,10 +1163,16 @@ def flash_phase(dev) -> dict:
                   f"flash_attention {name}: an element is off by more "
                   f"than two bf16 steps of itself (rtol 2^-6, atol 1e-5)")
             tight = " and within two bf16 steps of each element"
+        (B, S, H, hd), KV = q.shape, k.shape[2]
         print(f"[flash] {name} (B={B}, S={S}, H={H}, KV={KV}, hd={hd}, "
-              f"{str(dtype)[6:]}, causal={causal}, window={window}): max "
-              f"abs err {err:.3g} ({err / ref_max:.3g} of the largest "
-              f"|output| {ref_max:.3g}) <= {tol}{tight}")
+              f"{str(dtype)[6:]}, causal={causal}, window={window}), route "
+              f"{ran}: max abs err {err:.3g} ({err / ref_max:.3g} of the "
+              f"largest |output| {ref_max:.3g}) <= {tol}{tight}")
+        return err, ran
+
+    main_err = None
+    for name, B, S, H, KV, hd, dtype, causal, window in cases:
+        err, _ = hold(name, *inputs(B, S, H, KV, hd, dtype), causal, window)
         main_err = err if main_err is None else main_err
 
     B, S, H, hd = 1, 2048, 32, 80
@@ -1158,6 +1194,7 @@ def flash_phase(dev) -> dict:
     print(f"[flash] main shape by route: bf16 (tensor cores) {ms:.4f} ms, "
           f"f32 (FMA kernel) {f32_ms:.4f} ms, scaled_dot_product_attention "
           f"bf16 {lib_ms:.4f} ms")
+    families = [family_case(hold, inputs, *case) for case in FAMILY_FLASH]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -1165,7 +1202,57 @@ def flash_phase(dev) -> dict:
             "launches": None, "max_abs_err": main_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "f32_ms": f32_ms,
-            "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True}
+            "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True,
+            "family_shapes": families}
+
+
+# bf16 causal prefill shapes of the transformer families (phase 5):
+# (config, B, S, H, KV, hd, window)
+FAMILY_FLASH = [("llama3.2-1b", 1, 2048, 32, 8, 64, None),
+                ("qwen2-vl-7b", 1, 2048, 28, 4, 128, None),
+                ("starcoder2-15b", 1, 4608, 48, 4, 128, 4096)]
+
+
+def family_case(hold, inputs, arch, B, S, H, KV, hd, window) -> dict:
+    """One family's prefill shape: held to the plain version on the
+    tensor-core route, timed beside scaled_dot_product_attention (on the
+    kv heads expanded, with the window as a mask) and the bound of the
+    live (query, key) pairs' products at the bf16 tensor-core rate."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import expand_kv
+
+    q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16)
+    err, ran = hold(f"{arch} prefill bf16", q, k, v, True, window)
+    check(ran == "wgmma", f"flash {arch} shape took the {ran} route, not "
+          f"the tensor cores")
+    ms = cuda_ms(lambda: attention(q, k, v, causal=True, window=window),
+                 reps=20)
+    qt, kt, vt = q.transpose(1, 2), expand_kv(k, H), expand_kv(v, H)
+    if window is None:
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=True)
+    else:
+        i = torch.arange(S, device=q.device)
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=band)
+    lib()
+    lib_ms = cuda_ms(lib, reps=20)
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    n_ops = 4 * B * H * hd * pairs
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    print(f"[flash] {arch} prefill shape: kernel {ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}: {pairs} live pairs, {n_ops / 1e9:.2f} GFLOP), "
+          f"{ms / b_ms:.2f}x the bound")
+    return {"config": arch, "shape": [B, S, H, hd], "kv_heads": KV,
+            "window": window, "route_taken": ran, "max_abs_err": err,
+            "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "live_pairs": pairs}
 
 
 def ssd_phase(dev) -> dict:
@@ -1229,8 +1316,38 @@ def ssd_phase(dev) -> dict:
             "by_chunks": by_g}
 
 
-def serve_phase(dev) -> dict:
-    """Phase 7: zamba2-2.7b at full width behind the Server."""
+class _Watched:
+    """A model whose prefill and decode logits are checked for finite
+    values on the device (one flag, read once at the end)."""
+
+    def __init__(self, model):
+        import torch
+        self._model = model
+        self.bad = torch.zeros((), dtype=torch.bool, device=model.device)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def _watch(self, out):
+        self.bad |= ~out[0].isfinite().all()
+        return out
+
+    def prefill(self, *args, **kw):
+        return self._watch(self._model.prefill(*args, **kw))
+
+    def decode(self, *args, **kw):
+        return self._watch(self._model.decode(*args, **kw))
+
+
+def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
+                lengths=None, gen=SERVE_GEN, n_layers=None,
+                tag="serve") -> dict:
+    """Phases 7, 10 and 10b: ``arch`` at full width (cut to ``n_layers``
+    where given) behind the Server: seeded prompts of ``lengths`` tokens
+    (by default SERVE_REQUESTS seeded lengths in 256-2048), ``gen``
+    greedy tokens each; the vlm family's requests carry seeded patch
+    embeds through admit(extras=).  Exact kernel launches, finite
+    logits, prefill tokens/s, decode ms a step, peak memory."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1239,30 +1356,46 @@ def serve_phase(dev) -> dict:
     from repro_torch.launch.serve import Server
     from repro_torch.models import make_model
 
-    cfg = get_config(ARCH)
-    model = make_model(cfg, device=dev)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = _Watched(make_model(cfg, device=dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.hd}, {n_params} parameters "
+    cut = ("" if n_layers is None
+           else f" (cut from {get_config(arch).n_layers})")
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers{cut}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} (kv "
+          f"{cfg.n_kv_heads}), window {cfg.window}, {n_params} parameters "
           f"({n_params * 4 / 1e9:.2f} GB f32) initialised on the card in "
           f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(0)
-    lengths = rng.integers(256, 2049, SERVE_REQUESTS)
-    check(any(n % 64 and n % FLASH_TILE for n in lengths),
-          "no prompt length is ragged against the SSD chunk and the tile")
-    prompts = [rng.integers(0, cfg.vocab, n) for n in lengths]
-    print(f"[serve] prompt lengths {lengths.tolist()}")
-    srv = Server(model, params, slots=SERVE_SLOTS, context=SERVE_CONTEXT)
+    if lengths is None:
+        lengths = rng.integers(256, 2049, SERVE_REQUESTS)
+        check(any(n % 64 and n % FLASH_TILE for n in lengths),
+              "no prompt length is ragged against the SSD chunk and the tile")
+    lengths = np.asarray(lengths)
+    requests = []
+    for n in lengths:
+        extras = None
+        if cfg.family == "vlm":
+            extras = {"patch_embeds": torch.as_tensor(rng.standard_normal(
+                (cfg.n_patches, cfg.d_model)).astype(np.float32))}
+        requests.append((rng.integers(0, cfg.vocab, n), extras))
+    print(f"[{tag}] prompt lengths {lengths.tolist()}, context {context}, "
+          f"{slots} slots, {gen} greedy tokens each"
+          + (f", {cfg.n_patches} patch embeds a request"
+             if cfg.family == "vlm" else ""))
+    srv = Server(model, params, slots=slots, context=context)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     attention.launches = 0
     ssd_intra_chunk.launches = 0
-    pending = list(reversed(prompts))
+    pending = list(reversed(requests))
     done, prefill_s, decode_s, steps, decode_tokens = [], 0.0, 0.0, 0, 0
     t_all = time.perf_counter()
     while pending or srv.active.any():
@@ -1270,7 +1403,7 @@ def serve_phase(dev) -> dict:
             if not srv.active[s] and pending:
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                srv.admit(s, pending.pop())
+                srv.admit(s, *pending.pop())
                 torch.cuda.synchronize()
                 prefill_s += time.perf_counter() - t
         n_active = int(srv.active.sum())
@@ -1281,65 +1414,103 @@ def serve_phase(dev) -> dict:
         steps += 1
         decode_tokens += n_active
         for s in range(srv.slots):
-            if srv.active[s] and len(srv.outputs[s]) >= SERVE_GEN:
+            if srv.active[s] and len(srv.outputs[s]) >= gen:
                 done.append(srv.outputs[s])
                 srv.active[s] = False
     wall = time.perf_counter() - t_all
     launches = {"flash_attention": attention.launches,
                 "ssd_intra_chunk": ssd_intra_chunk.launches}
-    print(f"[serve] launches: {launches}")
-    # one flash launch per shared-block application, one SSD launch per
-    # Mamba2 layer, per prefill; decode runs neither kernel
-    want = {"flash_attention":
-            cfg.n_layers // cfg.shared_attn_every * SERVE_REQUESTS,
-            "ssd_intra_chunk": cfg.n_layers * SERVE_REQUESTS}
-    check(launches == want, f"kernel launches {launches} on the serving "
-          f"path, expected {want}")
-    check(len(done) == SERVE_REQUESTS
-          and all(len(d) == SERVE_GEN for d in done),
-          f"served {len(done)} of {SERVE_REQUESTS} requests")
+    print(f"[{tag}] launches: {launches}")
+    # per prefill: one flash launch per attention layer (hybrid: per
+    # shared-block application), one SSD launch per Mamba2 layer; decode
+    # runs neither kernel
+    n_req = len(lengths)
+    if cfg.family == "hybrid":
+        want = {"flash_attention":
+                cfg.n_layers // cfg.shared_attn_every * n_req,
+                "ssd_intra_chunk": cfg.n_layers * n_req}
+    else:
+        want = {"flash_attention": cfg.n_layers * n_req,
+                "ssd_intra_chunk": 0}
+    check(launches == want, f"{arch}: kernel launches {launches} on the "
+          f"serving path, expected {want}")
+    check(len(done) == n_req and all(len(d) == gen for d in done),
+          f"{arch}: served {len(done)} of {n_req} requests")
+    check(not bool(model.bad), f"{arch}: non-finite logits")
     check(all(0 <= t < cfg.vocab for d in done for t in d),
-          "a generated token is outside the vocabulary")
+          f"{arch}: a generated token is outside the vocabulary")
     peak = torch.cuda.max_memory_allocated()
-    stats = dict(launches,
+    stats = dict(launches, arch=arch, layers=cfg.n_layers,
                  prefill_tok_s=float(lengths.sum()) / prefill_s,
                  decode_ms_per_step=decode_s / steps * 1e3,
-                 decode_tok_s=decode_tokens / decode_s)
-    print(f"[serve] {len(done)} requests, {int(lengths.sum())} prompt "
-          f"tokens, {SERVE_REQUESTS * SERVE_GEN} generated, wall "
+                 decode_tok_s=decode_tokens / decode_s,
+                 peak_gib=peak / 2**30)
+    print(f"[{tag}] {arch}: {len(done)} requests, {int(lengths.sum())} "
+          f"prompt tokens, {n_req * gen} generated, logits finite, wall "
           f"{wall:.3f} s; prefill {prefill_s:.3f} s "
           f"({stats['prefill_tok_s']:.1f} tokens/s); {steps} decode steps "
           f"in {decode_s:.3f} s ({stats['decode_ms_per_step']:.3f} ms per "
           f"step, {stats['decode_tok_s']:.1f} tokens/s); "
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
-    del srv, params
+    del srv, params, model
     torch.cuda.empty_cache()
     return stats
 
 
-def depth6_phase(dev) -> None:
-    """Phase 8: the card's path against the plain path on the host."""
+def _routing_hooks(params, side: str, log: dict) -> None:
+    """Records, at every MoE call of ``params``, (layer, its float32
+    routing probabilities, the experts each token chose) under
+    ``log[side]``, in call order."""
+    from repro_torch.models import moe
+
+    for i, layer in enumerate(params.layers):
+        if isinstance(getattr(layer, "mlp", None), moe.MoE):
+            def hook(mod, args, out, i=i):
+                probs = moe.router_probs(mod, args[0])
+                log.setdefault(side, []).append(
+                    (i, probs.cpu(), moe.topk_experts(
+                        probs, mod.cfg.top_k).cpu()))
+            layer.mlp.register_forward_hook(hook)
+
+
+def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
+                 seed=1) -> list:
+    """The card's path against the plain path on the host, the same
+    seeded weights on both: ``prompts`` (the vlm family's with seeded
+    patch embeds over up to half of each) prefilled and spliced into one
+    slot each, then ``steps`` teacher-forced decode steps at the Server's
+    shared index;
+    the MoE's chosen experts compared first, call by call (a mismatch
+    names the layer, the token and the gap between the k-th and
+    (k+1)-th probability), then the logits of every step at rtol = atol
+    = ``tol``.  Returns the max abs error of each step."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import make_model
 
-    cfg = get_config(ARCH).replace(n_layers=6, dtype="float32")
     m_dev, m_cpu = make_model(cfg, device=dev), make_model(cfg, device="cpu")
-    p_dev = m_dev.init(torch.Generator(device=dev).manual_seed(1))
+    p_dev = m_dev.init(torch.Generator(device=dev).manual_seed(seed))
     p_cpu = copy.deepcopy(p_dev).to("cpu")
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (256, 200)]
-    context, steps = 512, 8
+    routes = {}
+    _routing_hooks(p_dev, "card", routes)
+    _routing_hooks(p_cpu, "host", routes)
+    rng = np.random.default_rng(seed)
+    # a vlm request's image covers at most half its prompt: qwen2-vl's
+    # dynamic resolution gives fewer patches than n_patches to a smaller
+    # image (the reference writes however many it is given)
+    extras = [{"patch_embeds": torch.as_tensor(rng.standard_normal(
+        (1, min(cfg.n_patches, len(p) // 2), cfg.d_model)
+    ).astype(np.float32))} if cfg.family == "vlm" else {} for p in prompts]
     index = max(len(p) for p in prompts)     # the Server's shared index
 
     def run(model, params, forced):
         caches = model.init_caches(len(prompts), context)
         out = []
-        for slot, prompt in enumerate(prompts):
-            toks = torch.as_tensor(prompt[None], device=model.device)
-            logits, one = model.prefill(params, {"tokens": toks},
-                                        context=context)
+        for slot, (prompt, extra) in enumerate(zip(prompts, extras)):
+            batch = {"tokens": torch.as_tensor(prompt[None],
+                                               device=model.device)}
+            batch.update({k: v.to(model.device) for k, v in extra.items()})
+            logits, one = model.prefill(params, batch, context=context)
             caches = model.splice_cache(caches, one, slot)
             out.append(logits[:, -1].float().cpu())
         feed = forced or [torch.cat(out).argmax(-1)[:, None]]
@@ -1355,20 +1526,109 @@ def depth6_phase(dev) -> None:
     want, feed = run(m_cpu, p_cpu, None)
     t_cpu = time.perf_counter() - t
     got, _ = run(m_dev, p_dev, feed)
+    calls = list(zip(routes.get("card", []), routes.get("host", [])))
+    check(len(routes.get("card", [])) == len(routes.get("host", [])),
+          f"{what}: the card and the host made different MoE calls")
+    for (layer, _, c_card), (_, probs, c_host) in calls:
+        if not torch.equal(c_card, c_host):
+            b, tok = (c_card != c_host).any(-1).nonzero()[0].tolist()
+            top = probs[b, tok].sort(descending=True).values
+            k = c_host.shape[-1]
+            fail(f"{what}: MoE routing differs at layer {layer}, batch row "
+                 f"{b}, token {tok}: card {c_card[b, tok].tolist()}, host "
+                 f"{c_host[b, tok].tolist()}; gap between the k-th and "
+                 f"(k+1)-th probability {float(top[k - 1] - top[k]):.3g}")
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     for i, (g, w) in enumerate(zip(got, want)):
         check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
-              f"depth-6 step {i}: non-finite logits or wrong shape")
-        check(bool(torch.allclose(g, w, rtol=1e-3, atol=1e-3)),
-              f"depth-6 step {i}: card and host logits differ by "
-              f"{errs[i]:.3g} (rtol = atol = 1e-3)")
-    print(f"[depth6] {ARCH} at full width, 6 layers, f32: 2 prefills "
-          f"(256, 200 tokens) + {steps} teacher-forced decode steps, card "
-          f"vs host logits max abs err {max(errs):.3g} <= 1e-3 "
-          f"(per step {[float(f'{e:.3g}') for e in errs]}); host run "
+              f"{what} step {i}: non-finite logits or wrong shape")
+        check(bool(torch.allclose(g, w, rtol=tol, atol=tol)),
+              f"{what} step {i}: card and host logits differ by "
+              f"{errs[i]:.3g} (rtol = atol = {tol:g})")
+    routed = (f"; MoE experts equal in all {len(calls)} calls"
+              if calls else "")
+    print(f"[{what}] {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32: {len(prompts)} prefills "
+          f"({', '.join(str(len(p)) for p in prompts)} tokens) + {steps} "
+          f"teacher-forced decode steps, card vs host logits max abs err "
+          f"{max(errs):.3g} <= {tol:g} (per step "
+          f"{[float(f'{e:.3g}') for e in errs]}){routed}; host run "
           f"{t_cpu:.1f} s")
     del p_dev, p_cpu
     torch.cuda.empty_cache()
+    return errs
+
+
+def depth6_phase(dev) -> None:
+    """Phase 8: the card's path against the plain path on the host."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH).replace(n_layers=6, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (256, 200)]
+    card_vs_host(dev, cfg, prompts, context=512, steps=8, tol=1e-3,
+                 what="depth6")
+
+
+# the transformer families (phases 10-10c): this slice's main path, then
+# the other six configs at full width, 2 slots answering 2 requests of
+# 16 greedy tokens; prompts of 512 tokens, 4,608 for the sliding-window
+# configs (past their 4,096-token window, context 8,192).  mixtral's 56
+# layers take 524 GiB in f32: it runs 2 of them.
+LM_ARCH = "llama3.2-1b"
+FAMILY_SERVE = [  # (config, prompt tokens, context, layers kept or None)
+    ("granite-moe-1b-a400m", 512, 1024, None),
+    ("qwen2-vl-7b", 512, 1024, None),
+    ("olmo-1b", 512, 1024, None),
+    ("smollm-360m", 512, 1024, None),
+    ("starcoder2-15b", 4608, 8192, None),
+    ("mixtral-8x22b", 4608, 8192, 2),
+]
+FAMILY_GEN = 16
+CARD_HOST_ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b")
+SMOKE_ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b",
+               "olmo-1b", "smollm-360m", "starcoder2-15b", "mixtral-8x22b")
+
+
+def families_phase(dev) -> dict:
+    """Phases 10 and 10b: llama3.2-1b at full width and depth behind the
+    Server (this slice's main path), then the other six configs."""
+    t = time.perf_counter()
+    main = serve_phase(dev, LM_ARCH, tag="serve-llama")
+    print(f"[serve-llama] phase 10 wall {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    others = [serve_phase(dev, arch, slots=2, context=context,
+                          lengths=[n, n], gen=FAMILY_GEN, n_layers=layers,
+                          tag="serve-families")
+              for arch, n, context, layers in FAMILY_SERVE]
+    print(f"[serve-families] phase 10b wall {time.perf_counter() - t:.1f} s")
+    return {"main": main, "others": others}
+
+
+def families_card_vs_host_phase(dev) -> None:
+    """Phase 10c: full width cut to 2 layers, f32, card against host at
+    1e-3 (as phase 8); then every smoke config at 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    for arch in CARD_HOST_ARCHS:
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (256, 200)]
+        card_vs_host(dev, cfg, prompts, context=512, steps=8, tol=1e-3,
+                     what="card-host")
+    for arch in SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (20, 13)]
+        card_vs_host(dev, cfg, prompts, context=64, steps=4, tol=1e-4,
+                     what="card-host-smoke")
+    print(f"[card-host] phase 10c wall {time.perf_counter() - t:.1f} s")
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4     # the main training path
@@ -2034,7 +2294,16 @@ def main() -> int:
     train_depth6_phase(dev)
     train_restart_phase(dev, Path(work.name))
 
-    # ---- 10. kernels line ---------------------------------------------------
+    # ---- 10. the transformer families: llama3.2-1b (this slice's main
+    # path), the other six configs, card against host ----------------------
+    served = families_phase(dev)
+    flash_entry["zamba2_launches"] = flash_entry["launches"]
+    flash_entry["launches"] = served["main"]["flash_attention"]
+    flash_entry["family_launches"] = {
+        st["arch"]: st["flash_attention"] for st in served["others"]}
+    families_card_vs_host_phase(dev)
+
+    # ---- 11. kernels line ---------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -2079,6 +2348,13 @@ def main() -> int:
           f"{serve_stats['decode_tok_s']:.1f} decode tokens/s; training "
           f"{trained['step_ms']:.1f} ms a step, {trained['tokens_s']:.1f} "
           f"tokens/s, peak {trained['peak_gib']:.3f} GiB")
+    for st in [served["main"]] + served["others"]:
+        print(f"[summary] serving {st['arch']} ({st['layers']} layers): "
+              f"{st['prefill_tok_s']:.1f} prefill tokens/s, "
+              f"{st['decode_ms_per_step']:.3f} ms per decode step, "
+              f"{st['decode_tok_s']:.1f} decode tokens/s, peak "
+              f"{st['peak_gib']:.3f} GiB, {st['flash_attention']} flash "
+              f"launches")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

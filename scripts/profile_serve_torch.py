@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's zamba2-2.7b serving path goes, on one GPU.
+"""Where the time of the port's serving path goes, on one GPU.
 
-    PYTHONPATH=src python3 scripts/profile_serve_torch.py
+    PYTHONPATH=src python3 scripts/profile_serve_torch.py [--arch NAME]
 
-Builds zamba2-2.7b at full width (seeded random weights, bf16
-activations) on the CUDA device, warms up, then traces with
+Builds the config (zamba2-2.7b unless ``--arch`` names another ported
+one, e.g. llama3.2-1b) at full width and depth (seeded random weights,
+bf16 activations) on the CUDA device, warms up, then traces with
 torch.profiler (a) one prefill of a 2048-token prompt and (b) 8 decode
 steps of a Server with 4 active slots at context 4096.  For each window
 it prints the wall time (host clock around work that ends in a
@@ -17,6 +18,7 @@ device; exits non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -73,7 +75,10 @@ def report(what: str, prof, wall_s: float, kinds=KINDS) -> None:
               f"{e.key[:160]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-2.7b")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -88,7 +93,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(args.arch)
     dev = torch.device("cuda")
     model = make_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -107,7 +112,8 @@ def main() -> int:
         model.prefill(params, {"tokens": tokens}, context=4096)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"prefill 2048 tokens, {cfg.n_layers} layers", prof, wall)
+    report(f"{cfg.name} prefill 2048 tokens, {cfg.n_layers} layers", prof,
+           wall)
 
     steps = 8
     with profile(activities=acts) as prof:
@@ -116,8 +122,8 @@ def main() -> int:
             srv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"{steps} decode steps x 4 slots, {cfg.n_layers} layers", prof,
-           wall)
+    report(f"{cfg.name} {steps} decode steps x 4 slots, {cfg.n_layers} "
+           f"layers", prof, wall)
     return 0
 
 

@@ -2,8 +2,9 @@
 
 ``get_config(name)``: the full configuration.  ``get_smoke_config(name)``:
 the reduced configuration of the same family for CPU tests.  Only the
-architectures the port serves are registered (``zamba2-2.7b``); asking
-for another raises an error that says where the rest are planned.
+architectures the port serves are registered (the hybrid zamba2-2.7b and
+the dense, MoE and VLM transformers); asking for another (whisper-small,
+xlstm-350m) raises an error that says where the rest are planned.
 """
 from __future__ import annotations
 
@@ -40,5 +41,13 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _lookup(_SMOKE, name)
 
 
+def list_archs():
+    """The names of the ported architectures, sorted."""
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 def _ensure_loaded():
-    from . import zamba2_2_7b  # noqa: F401
+    from . import (granite_moe_1b, llama3_2_1b, mixtral_8x22b,  # noqa: F401
+                   olmo_1b, qwen2_vl_7b, smollm_360m, starcoder2_15b,
+                   zamba2_2_7b)

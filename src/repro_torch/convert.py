@@ -59,27 +59,41 @@ def _flat(tree: Mapping, prefix: str = ""):
             yield f"{prefix}{k}", np.asarray(v)
 
 
+def _stacking(cfg):
+    """(the reference's name for its stacked per-layer leaves, their
+    leading dims): hybrid Mamba2 layers ``mamba.<leaf>`` (G, per, ...),
+    transformer layers ``layers.<leaf>`` (L, ...).  The port names layer
+    ``i`` of that row-major stack ``layers.<i>``."""
+    if cfg.family == "hybrid":
+        from .models.hybrid import groups
+        return "mamba", groups(cfg)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return "layers", (cfg.n_layers,)
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is "
+                              f"not ported (ROADMAP.md queue 1)")
+
+
 def model_params_from_jax(cfg, params: Mapping,
                           into: Optional[torch.nn.Module] = None):
-    """The reference's hybrid-model parameter pytree (nested dicts of
-    numpy arrays, mamba leaves stacked (G, per, ...)) -> the port's state
-    dict of ``HybridLM`` (float32 CPU tensors), or, with ``into``, that
-    model with the weights loaded (on its own device).  Names and shapes
-    match one for one: ``mamba.<leaf>[g, i]`` becomes
-    ``layers.<g * per + i>.<leaf>``."""
-    from .models.hybrid import groups
-
-    G, per = groups(cfg)
+    """The reference's parameter pytree (nested dicts of numpy arrays,
+    per-layer leaves stacked) -> the port's state dict (float32 CPU
+    tensors), or, with ``into``, that model with the weights loaded (on
+    its own device).  Names and shapes match one for one: the hybrid's
+    ``mamba.<leaf>[g, i]`` becomes ``layers.<g * per + i>.<leaf>``, the
+    transformer's ``layers.<leaf>[i]`` becomes ``layers.<i>.<leaf>``
+    (MoE experts, biases and all); tied configs have no ``embed.head``."""
+    stack, lead = _stacking(cfg)
+    n = int(np.prod(lead))
     state: Dict[str, torch.Tensor] = {}
     for name, a in _flat(params):
-        if name.startswith("mamba."):
-            if a.shape[:2] != (G, per):
-                raise ValueError(f"{name}: leading dims {a.shape[:2]} are "
-                                 f"not (groups, per_group) = {(G, per)}")
-            for g in range(G):
-                for i in range(per):
-                    state[f"layers.{g * per + i}.{name[6:]}"] = \
-                        torch.from_numpy(np.array(a[g, i], np.float32))
+        if name.startswith(stack + "."):
+            if a.shape[:len(lead)] != tuple(lead):
+                raise ValueError(f"{name}: leading dims "
+                                 f"{a.shape[:len(lead)]} are not {lead}")
+            rows = a.reshape((n,) + a.shape[len(lead):])
+            for i in range(n):
+                state[f"layers.{i}.{name[len(stack) + 1:]}"] = \
+                    torch.from_numpy(np.array(rows[i], np.float32))
         else:
             state[name] = torch.from_numpy(np.array(a, np.float32))
     if into is None:
@@ -89,25 +103,23 @@ def model_params_from_jax(cfg, params: Mapping,
 
 
 def model_params_to_jax(cfg, params: Mapping[str, torch.Tensor]) -> Dict:
-    """The inverse of ``model_params_from_jax``: a state dict of
-    ``HybridLM`` (tensors on any device) -> the reference's parameter
-    pytree as nested dicts of float32 numpy arrays, mamba leaves stacked
-    (G, per, ...)."""
-    from .models.hybrid import groups
-
-    G, per = groups(cfg)
+    """The inverse of ``model_params_from_jax``: a state dict (tensors on
+    any device) -> the reference's parameter pytree as nested dicts of
+    float32 numpy arrays, per-layer leaves stacked."""
+    stack, lead = _stacking(cfg)
+    n = int(np.prod(lead))
     out: Dict[str, Any] = {}
-    mamba: Dict[str, list] = {}
+    stacked: Dict[str, list] = {}
     for name, t in params.items():
         a = t.detach().to("cpu", copy=True).float().numpy()
         if name.startswith("layers."):
             layer, leaf = name[7:].split(".", 1)
-            mamba.setdefault(leaf, [None] * (G * per))[int(layer)] = a
+            stacked.setdefault(leaf, [None] * n)[int(layer)] = a
         else:
             _put(out, name, a)
-    for leaf, arrays in mamba.items():
-        _put(out, f"mamba.{leaf}",
-             np.stack(arrays).reshape((G, per) + arrays[0].shape))
+    for leaf, arrays in stacked.items():
+        _put(out, f"{stack}.{leaf}",
+             np.stack(arrays).reshape(tuple(lead) + arrays[0].shape))
     return out
 
 

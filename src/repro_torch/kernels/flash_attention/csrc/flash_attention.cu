@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "flash_bwd_tile.cuh"
 #include "flash_hopper.cuh"
 #include "flash_tile.cuh"
@@ -235,6 +237,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+std::atomic<int> fwd_last_route{-1};   // 1 tensor cores, 0 FMA, -1 none yet
+
 }  // namespace
 
 // q, k, v, o as above; `lse`, where not null, receives each query row's
@@ -257,13 +261,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && fa_hopper::takes(q, k, v, o, hd))
-    return fa_hopper::dispatch(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
+  const bool tc = bf16 && fa_hopper::takes(q, k, v, o, hd);
+  const int err =
+      tc ? fa_hopper::dispatch(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
+                               causal, window, st)
+      : bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, o32, B, S, Tk, H,
+                                       KV, hd, causal, window, st)
+             : dispatch<float>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
                                causal, window, st);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, o32, B, S, Tk, H,
-                                        KV, hd, causal, window, st)
-              : dispatch<float>(q, k, v, o, lse, o32, B, S, Tk, H, KV, hd,
-                                causal, window, st);
+  if (err == 0) fwd_last_route.store(tc ? 1 : 0);
+  return err;
+}
+
+// The route of the latest launch in this process: 1 the tensor-core
+// kernel (flash_hopper.cuh), 0 the FMA kernel, -1 before the first.
+extern "C" int flash_attention_last_route() {
+  return fwd_last_route.load();
 }
 
 // Dynamic shared memory of the Hopper kernel for this head_dim, in bytes;

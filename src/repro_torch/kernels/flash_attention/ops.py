@@ -6,7 +6,8 @@ differentiable.  For CUDA tensors its forward launches
 ``csrc/flash_attention.cu``, which resolves GQA by indexing (query head
 h reads kv head h // (H / KV)) and runs bf16 inputs whose head_dim is a
 multiple of 8 on the tensor cores (``csrc/flash_hopper.cuh``),
-everything else on its FMA kernel; when a gradient is wanted the
+everything else on its FMA kernel (``last_route()`` names the route
+of the latest forward); when a gradient is wanted the
 forward also writes each row's log-sum-exp (and, for bf16 with head_dim
 a multiple of 8, its output in f32), and the backward launches
 ``csrc/flash_attention_bwd.cu`` (``attention_bwd``): those bf16 calls on
@@ -131,6 +132,14 @@ def _launch_bwd(q, k, v, dout, lse, causal: bool, window: Optional[int],
                  "flash_attention_bwd")
     attention_bwd.launches += 2
     return dq, dk, dv
+
+
+def last_route() -> str | None:
+    """The route the forward's latest launch in this process took:
+    "wgmma" (the tensor-core kernel) or "fma"; None before the first."""
+    fn = _build.function("flash_attention", "flash_attention_last_route",
+                         [])
+    return {1: "wgmma", 0: "fma"}.get(fn())
 
 
 def last_bwd_route() -> str | None:

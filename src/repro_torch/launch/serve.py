@@ -6,10 +6,13 @@ temperature sampling.  Slot-based continuous batching: a finished
 request frees its slot and the next queued prompt is prefilled into it
 (cache splice), so the decode batch stays full.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 8 --batch-slots 4 --prompt-len 512 --gen 32 --context 4096
 
-It runs on the CUDA device unless ``--device cpu`` is given.
+``--arch`` takes every ported configuration (``configs.list_archs()``).
+It runs on the CUDA device unless ``--device cpu`` is given.  As in the
+reference, the command line serves text only: the vlm family's patch
+embeds reach a request through ``Server.admit(extras=)``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config, get_smoke_config
+from ..configs import get_config, get_smoke_config, list_archs
 from ..models import make_model
 
 
@@ -52,11 +55,17 @@ class Server:
         self.active = np.zeros(slots, bool)
         self.outputs = [[] for _ in range(slots)]
 
-    def admit(self, slot: int, prompt: np.ndarray):
-        """Prefill one prompt and splice its cache into `slot`."""
-        tokens = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int64,
-                                 device=self.model.device)
-        logits, cache1 = self.model.prefill(self.params, {"tokens": tokens},
+    def admit(self, slot: int, prompt: np.ndarray, extras=None):
+        """Prefill one prompt and splice its cache into `slot`.
+        ``extras``: the request's other inputs without the batch axis
+        (the vlm family's "patch_embeds" (n_patches, D)), as arrays or
+        tensors."""
+        dev = self.model.device
+        batch = {"tokens": torch.as_tensor(np.asarray(prompt)[None],
+                                           dtype=torch.int64, device=dev)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=dev)[None]
+        logits, cache1 = self.model.prefill(self.params, batch,
                                             context=self.context)
         self.caches = self.model.splice_cache(self.caches, cache1, slot)
         first = sample(logits[:, -1], self.generator, self.temperature)
@@ -88,7 +97,7 @@ class Server:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-slots", type=int, default=4)

@@ -14,9 +14,10 @@ shared-block application, stacked as the reference stacks them:
 
 Training runs ``HybridLM.forward`` (the reference's ``forward``): the
 logits of every position, each Mamba2 layer and each shared-block
-application wrapped as the reference's ``remat_wrap`` wraps them
-(``cfg.remat``: "full" recomputes the wrapped call in the backward pass,
-through ``torch.utils.checkpoint``; "none" keeps its activations).
+application wrapped by ``transformer.remat_wrap``, as the reference's
+``remat_wrap`` wraps them (``cfg.remat``: "full" recomputes the wrapped
+call in the backward pass, through ``torch.utils.checkpoint``; "none"
+keeps its activations).
 """
 from __future__ import annotations
 
@@ -24,11 +25,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
 from .ssm import Mamba2Mixer, SSMState, init_ssm_state
+from .transformer import remat_wrap
 
 
 def groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -74,26 +75,6 @@ class SharedBlock(nn.Module):
         return self(x)[0]
 
 
-def remat_wrap(fn, cfg: ModelConfig):
-    """``fn`` as the reference's ``remat_wrap`` (models/transformer.py)
-    wraps it: "none" as it is, "full" recomputed in the backward pass.
-    The reference's "dots" policy (keep the matrix products, recompute
-    the rest) has no counterpart yet."""
-    if cfg.remat == "none":
-        return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' is not ported (ROADMAP.md queue 1)")
-    if cfg.remat != "full":
-        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
-
-    def wrapped(x):
-        if not torch.is_grad_enabled():
-            return fn(x)
-        return checkpoint(fn, x, use_reentrant=False)
-    return wrapped
-
-
 class HybridLM(nn.Module):
     """The hybrid language model; its parameters are the reference's
     pytree under module names (``layers.{g * per + i}`` for mamba layer i
@@ -102,13 +83,6 @@ class HybridLM(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
-        unported = [f for f, v in (("qkv_bias", cfg.qkv_bias),
-                                   ("act != swiglu", cfg.act != "swiglu"),
-                                   ("tie_embeddings", cfg.tie_embeddings),
-                                   ("mrope", cfg.mrope)) if v]
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} "
-                                      f"is not ported (ROADMAP.md)")
         self.cfg = cfg
         groups(cfg)
         self.embed = L.Embedding(cfg, generator, device)
@@ -178,6 +152,11 @@ class HybridLM(nn.Module):
             x = x + sh.mlp(sh.ln2(x))
         x = self.ln_f(x)
         return L.logits_from_hidden(self.embed, cfg, x), caches
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device) -> HybridLM:
+    return HybridLM(cfg, generator, device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, context: int,

@@ -1,14 +1,17 @@
 """Shared building blocks of the served models, in PyTorch.
 
-Mirrors ``repro.models.layers`` for what the hybrid family runs: norms,
-1-D RoPE, attention (prefill through the flash-attention kernel, decode
-against a KV cache), the SwiGLU MLP, the untied embedding and the logits
-with their padded-vocabulary mask.  Parameters keep the reference's
-shapes and names (``wq`` is (D, H, hd), ...), so ``repro_torch.convert``
-carries weights across by name.  The reference's sharding annotations
-have no counterpart: the port runs on one device.  Parameters are held
-without gradients, as serving needs them; a trainer turns gradients on
-(``params.requires_grad_(True)``).
+Mirrors ``repro.models.layers`` for what the hybrid and the decoder-only
+transformer families run: norms, RoPE and qwen2-vl's M-RoPE,
+self-attention with optional q/k/v biases (prefill through the
+flash-attention kernel, decode against a KV cache, a ring buffer for
+sliding-window configs), the SwiGLU and GELU MLPs, the tied or untied
+embedding and the logits with their padded-vocabulary mask.
+Cross-attention (the whisper decoder's) is not ported yet.  Parameters
+keep the reference's shapes and names (``wq`` is (D, H, hd), ...), so
+``repro_torch.convert`` carries weights across by name.  The reference's
+sharding annotations have no counterpart: the port runs on one device.
+Parameters are held without gradients, as serving needs them; a trainer
+turns gradients on (``params.requires_grad_(True)``).
 """
 from __future__ import annotations
 
@@ -84,17 +87,31 @@ def apply_norm(p: Norm, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (1-D RoPE)
+# Rotary embeddings (RoPE and qwen2-vl M-RoPE)
 # ---------------------------------------------------------------------------
 
-def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float
+def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float,
+                 mrope_sections: Optional[Tuple[int, int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (B, S) integers.  Returns cos/sin of shape
-    (B, S, 1, hd // 2), float32 (head-broadcastable)."""
+    """positions: (B, S) integers, or (B, S, 3) for M-RoPE.  Returns
+    cos/sin of shape (B, S, 1, hd // 2), float32 (head-broadcastable).
+
+    M-RoPE (Qwen2-VL): the hd/2 frequency slots are split into
+    (temporal, height, width) sections, each driven by its own position
+    component; identical components give 1-D RoPE exactly."""
     dev = positions.device
     inv = torch.tensor(theta, dtype=torch.float32, device=dev) ** (
         -torch.arange(0, hd, 2, dtype=torch.float32, device=dev) / hd)
-    ang = positions.float()[..., None] * inv
+    if positions.dim() == 3:
+        t, h, w = mrope_sections
+        if t + h + w != hd // 2:
+            raise ValueError(f"mrope sections {mrope_sections} must cover "
+                             f"head_dim/2 = {hd // 2}")
+        sec = torch.repeat_interleave(torch.arange(3, device=dev),
+                                      torch.tensor([t, h, w], device=dev))
+        ang = positions.float()[:, :, sec] * inv
+    else:
+        ang = positions.float()[..., None] * inv
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
@@ -136,6 +153,11 @@ class Attention(nn.Module):
         self.wk = param(dense_init((D, KV, hd), g, device, fan_in=D))
         self.wv = param(dense_init((D, KV, hd), g, device, fan_in=D))
         self.wo = param(dense_init((H, hd, D), g, device, fan_in=H * hd))
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = param(zeros_init((H, hd), device))
+            self.bk = param(zeros_init((KV, hd), device))
+            self.bv = param(zeros_init((KV, hd), device))
 
     def forward(self, x, **kw):
         return attention_forward(self, self.cfg, x, **kw)
@@ -154,7 +176,16 @@ def _out_proj(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(p: Attention, x: torch.Tensor):
-    return _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if p.bq is not None:
+        dt = x.dtype
+        q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
+    return q, k, v
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    return rope_cos_sin(positions, cfg.hd, cfg.rope_theta,
+                        cfg.mrope_sections if cfg.mrope else None)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float):
@@ -173,13 +204,17 @@ def _gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+                      positions: Optional[torch.Tensor] = None,
                       causal: bool = True, window: Optional[int] = None):
-    """Full-sequence self-attention (prefill) at positions 0..S-1, through
-    the flash-attention kernel.  Returns (y, (k, v)); k/v build the decode
+    """Full-sequence self-attention (train / prefill) through the
+    flash-attention kernel.  ``positions``: (B, S), or (B, S, 3) for
+    M-RoPE; 0..S-1 by default.  Returns (y, (k, v)); k/v build the decode
     cache."""
     q, k, v = _qkv(p, x)
-    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    if positions is None:
+        positions = torch.arange(x.shape[1],
+                                 device=x.device).expand(x.shape[:2])
+    cos, sin = _rope(cfg, positions)
     q = apply_rope(q, cos, sin, cfg.bf16_elementwise)
     k = apply_rope(k, cos, sin, cfg.bf16_elementwise)
     y = attention(q, k, v, causal=causal, window=window)
@@ -205,11 +240,12 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     shared by the batch.  Writes row ``index % C`` of the cache in place
     (the reference returns an updated copy) and returns it.  Masking is by
     the absolute positions in ``cache.pos``, so ring overwrites are
-    exact."""
+    exact.  M-RoPE configs take ``index`` as all three components."""
     B = x.shape[0]
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x)
-    cos, sin = rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
+    cos, sin = _rope(cfg, pos[..., None].expand(B, 1, 3) if cfg.mrope
+                     else pos)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     slot = index % cache.k.shape[1]
@@ -250,14 +286,16 @@ def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU."""
+    """SwiGLU (``wg``, ``wu``, ``wd``) or GELU (``wu``, ``wd``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
         self.cfg = cfg
         D, F, g = cfg.d_model, cfg.d_ff, generator
-        self.wg = param(dense_init((D, F), g, device))
+        self.wg = None
+        if cfg.act == "swiglu":
+            self.wg = param(dense_init((D, F), g, device))
         self.wu = param(dense_init((D, F), g, device))
         self.wd = param(dense_init((F, D), g, device, fan_in=F))
 
@@ -265,9 +303,18 @@ class MLP(nn.Module):
         return apply_mlp(self, self.cfg, x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's
+    default is the exact erf form)."""
+    return nn.functional.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = nn.functional.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    if cfg.act == "swiglu":
+        h = nn.functional.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    else:
+        h = gelu(x @ p.wu.to(dt))
     return h @ p.wd.to(dt)
 
 
@@ -276,13 +323,18 @@ def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
+    """``table`` (Vp, D) and, unless the config ties them, ``head``
+    (D, Vp)."""
+
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
         self.cfg = cfg
         Vp, D = cfg.vocab_padded, cfg.d_model
         self.table = param(dense_init((Vp, D), generator, device, fan_in=D))
-        self.head = param(dense_init((D, Vp), generator, device))
+        self.head = None
+        if not cfg.tie_embeddings:
+            self.head = param(dense_init((D, Vp), generator, device))
 
 
 def embed_tokens(p: Embedding, cfg: ModelConfig,
@@ -293,8 +345,10 @@ def embed_tokens(p: Embedding, cfg: ModelConfig,
 def logits_from_hidden(p: Embedding, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     """float32 logits over the padded vocabulary; the padding columns
-    carry NEG_INF so a log-sum-exp over them is exact."""
-    out = x.float() @ p.head.float()
+    carry NEG_INF so a log-sum-exp over them is exact.  Tied configs
+    take the table's transpose for the head."""
+    w = p.table.T if cfg.tie_embeddings else p.head
+    out = x.float() @ w.float()
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         out = out.masked_fill(pad, NEG_INF)

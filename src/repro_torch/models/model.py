@@ -9,7 +9,8 @@ Mirrors ``repro.models.model.Model`` and its ``lm_loss``:
   init_caches(batch, context)
   splice_cache(caches, cache_one, slot)
 
-Only the hybrid family (zamba2) is ported; asking for another raises.
+The hybrid family (zamba2) and the decoder-only transformer families
+(dense, moe, vlm) are ported; asking for another (encdec, ssm) raises.
 The model lives on one device: CUDA unless the caller names the CPU.
 """
 from __future__ import annotations
@@ -18,15 +19,18 @@ import dataclasses
 from typing import Dict, Iterator, Union
 
 import torch
+from torch import nn
 from torch.nn import functional as F
 
 from ..device import DeviceLike, resolve_device
 from . import hybrid
+from . import transformer as tfm
 from .config import ModelConfig
 from .layers import KVCache
 from .ssm import SSMState
 
-PORTED_FAMILIES = ("hybrid",)
+_FAMILY = {"dense": tfm, "moe": tfm, "vlm": tfm, "hybrid": hybrid}
+PORTED_FAMILIES = ("hybrid", "dense", "moe", "vlm")
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
@@ -62,42 +66,57 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, seed: Union[int, torch.Generator] = 0
-             ) -> hybrid.HybridLM:
+    @property
+    def mod(self):
+        return _FAMILY[self.cfg.family]
+
+    def init(self, seed: Union[int, torch.Generator] = 0) -> nn.Module:
         """Fresh parameters on the model's device, drawn from ``seed`` (a
-        ``torch.Generator`` on that device, or an integer seeding one)."""
+        ``torch.Generator`` on that device, or an integer seeding one):
+        a ``TransformerLM`` or a ``HybridLM``."""
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        return hybrid.HybridLM(self.cfg, gen, self.device)
+        return self.mod.init_params(self.cfg, gen, self.device)
 
-    def loss(self, params: hybrid.HybridLM,
-             batch: Dict[str, torch.Tensor]):
-        """(loss, metrics) of a batch {"tokens", "labels"} (B, S)."""
-        logits, aux = params(batch["tokens"])
+    def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]):
+        """(loss, metrics) of a batch {"tokens", "labels"} (B, S), and for
+        the vlm family the optional "positions" (B, S, 3) and
+        "patch_embeds" (B, n_patches, D)."""
+        if self.cfg.family == "vlm":
+            logits, aux = params(batch["tokens"],
+                                 positions=batch.get("positions"),
+                                 patch_embeds=batch.get("patch_embeds"))
+        else:
+            logits, aux = params(batch["tokens"])
         return lm_loss(logits, batch["labels"], aux,
                        ce_impl=self.cfg.ce_impl)
 
-    def prefill(self, params: hybrid.HybridLM,
-                batch: Dict[str, torch.Tensor], *, context: int = 0):
+    def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor], *,
+                context: int = 0):
+        """(last-position logits, caches); the vlm family takes the
+        batch's optional "patch_embeds", as the reference does."""
         context = context or batch["tokens"].shape[1]
+        if self.cfg.family == "vlm":
+            return params.prefill(batch["tokens"], context=context,
+                                  patch_embeds=batch.get("patch_embeds"))
         return params.prefill(batch["tokens"], context=context)
 
-    def decode(self, params: hybrid.HybridLM, tokens: torch.Tensor,
-               caches: hybrid.HybridCaches, index: int):
+    def decode(self, params: nn.Module, tokens: torch.Tensor, caches,
+               index: int):
         return params.decode_step(tokens, caches, index)
 
-    def init_caches(self, batch: int, context: int) -> hybrid.HybridCaches:
-        return hybrid.init_caches(self.cfg, batch, context, self.device)
+    def init_caches(self, batch: int, context: int):
+        return self.mod.init_caches(self.cfg, batch, context, self.device)
 
-    def cache_batch_axes(self) -> hybrid.HybridCaches:
+    def cache_batch_axes(self):
         """The batch axis of every cache leaf (for slot splicing)."""
-        return hybrid.HybridCaches(ssm=SSMState(h=2, conv=2),
-                                   kv=KVCache(k=1, v=1, pos=1))
+        kv1 = KVCache(k=1, v=1, pos=1)
+        if self.cfg.family == "hybrid":
+            return hybrid.HybridCaches(ssm=SSMState(h=2, conv=2), kv=kv1)
+        return tfm.DecoderCaches(kv=kv1)
 
-    def splice_cache(self, caches: hybrid.HybridCaches,
-                     cache_one: hybrid.HybridCaches,
-                     slot: int) -> hybrid.HybridCaches:
+    def splice_cache(self, caches, cache_one, slot: int):
         """Write a batch-1 request cache into batch row ``slot`` of
         ``caches``, in place (the reference returns a new pytree)."""
         for full, new, ax in zip(_leaves(caches), _leaves(cache_one),

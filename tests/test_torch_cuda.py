@@ -307,6 +307,8 @@ def test_flash_kernel_matches_plain(gpu, S, T, H, KV, hd, dtype, causal,
     (1, 257, 257, 4, 2, 128, True, 100),
     (1, 200, 200, 4, 4, 24, False, None),       # hd not a multiple of 16
     (1, 200, 200, 4, 4, 36, True, None),        # hd % 8 != 0: FMA kernel
+    (1, 600, 600, 28, 4, 128, True, 256),       # qwen2-vl GQA 28/4, window
+    (1, 500, 500, 15, 5, 64, True, None),       # smollm GQA 15/5
 ])
 def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
                                                 causal, window):
@@ -314,7 +316,7 @@ def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
     version on the card, TF32 off: 2e-2, and every element within two
     bf16 steps of itself."""
     from repro_torch.kernels.flash_attention.ops import (
-        attention, hopper_shared_memory)
+        attention, hopper_shared_memory, last_route)
     from repro_torch.kernels.flash_attention.ref import expand_kv
     from repro_torch.kernels.flash_attention.ref import attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -322,6 +324,7 @@ def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
     before = attention.launches
     got = attention(q, k, v, causal=causal, window=window).float()
     assert attention.launches == before + 1
+    assert last_route() == ("wgmma" if hd % 8 == 0 else "fma")
     want = attention_ref(q.transpose(1, 2), expand_kv(k, H),
                          expand_kv(v, H), causal=causal,
                          window=window).transpose(1, 2).float()
@@ -466,6 +469,66 @@ def test_smoke_zamba2_on_gpu_matches_cpu(gpu):
         lg, cg = mg.decode(pg, nxt.to(gpu), cg, 100 + t)
         lc, cc = mc.decode(pc, nxt, cc, 100 + t)
         np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", [
+    "llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b", "olmo-1b",
+    "smollm-360m", "starcoder2-15b", "mixtral-8x22b"])
+def test_smoke_transformer_on_gpu_matches_cpu(gpu, arch):
+    """Each transformer-family smoke config: a 20-token prefill (past the
+    SWA configs' window of 8; qwen2-vl with patch embeds) and three
+    teacher-forced decode steps, card against host with the same
+    weights, the MoE's chosen experts first; f32 sums in another order:
+    1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import make_model, moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    mg, mc = make_model(cfg, device=gpu), make_model(cfg, device="cpu")
+    pg = mg.init(0)
+    pc = mc.init(0)
+    pc.load_state_dict({k: v.cpu() for k, v in pg.state_dict().items()})
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, 20)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    seen = {}
+
+    def route(side, i):
+        def hook(mod, args, out):
+            probs = moe.router_probs(mod, args[0])
+            seen.setdefault(side, []).append(
+                (i, probs.cpu(), moe.topk_experts(probs, cfg.top_k).cpu()))
+        return hook
+    for side, params in (("card", pg), ("host", pc)):
+        for i, layer in enumerate(params.layers):
+            if cfg.family == "moe":
+                layer.mlp.register_forward_hook(route(side, i))
+    lg, cg = mg.prefill(pg, {k: v.to(gpu) for k, v in batch.items()},
+                        context=64)
+    lc, cc = mc.prefill(pc, batch, context=64)
+    outs = [(lg, lc)]
+    for t in range(3):
+        nxt = lc[:, -1].argmax(-1)[:, None]
+        lg, cg = mg.decode(pg, nxt.to(gpu), cg, 20 + t)
+        lc, cc = mc.decode(pc, nxt, cc, 20 + t)
+        outs.append((lg, lc))
+    for (i, _, a), (_, probs, b) in zip(seen.get("card", []),
+                                        seen.get("host", [])):
+        if not torch.equal(a, b):
+            row, tok = (a != b).any(-1).nonzero()[0].tolist()
+            top = probs[row, tok].sort(descending=True).values
+            pytest.fail(f"{arch}: MoE routing differs at layer {i}, token "
+                        f"{tok}: card {a[row, tok].tolist()}, host "
+                        f"{b[row, tok].tolist()}; gap between the k-th and "
+                        f"(k+1)-th probability "
+                        f"{float(top[cfg.top_k - 1] - top[cfg.top_k]):.3g}")
+    assert len(seen.get("card", [])) == (4 * cfg.n_layers
+                                         if cfg.family == "moe" else 0)
+    for g, c in outs:
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
                                    atol=1e-4)
 
 

@@ -31,6 +31,10 @@ COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
           "apps/__init__.py",
           "apps/common.py", "apps/mibench.py", "apps/conv.py",
           "models/config.py", "configs/zamba2_2_7b.py",
+          "configs/llama3_2_1b.py", "configs/granite_moe_1b.py",
+          "configs/qwen2_vl_7b.py", "configs/olmo_1b.py",
+          "configs/smollm_360m.py", "configs/starcoder2_15b.py",
+          "configs/mixtral_8x22b.py",
           "runtime/__init__.py", "runtime/elastic.py", "runtime/faults.py",
           "runtime/heartbeat.py", "runtime/straggler.py",
           "service/monitor.py", "service/client.py", "service/__main__.py",
