@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: the CGRA estimator's
-DSE sweep, zamba2-2.7b serving and training, and serving the
-decoder-only transformer families (dense, MoE, VLM).
+DSE sweep, zamba2-2.7b serving and training, serving the decoder-only
+transformer families (dense, MoE, VLM), the encoder-decoder whisper-small
+and the xLSTM xlstm-350m.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -80,7 +81,9 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    as above, timed beside scaled_dot_product_attention and the bound of
    their live pairs at 989 TFLOP/s): llama3.2-1b (1, 2048, 32, 64) kv 8,
    qwen2-vl-7b (1, 2048, 28, 128) kv 4, starcoder2-15b (1, 4608, 48,
-   128) kv 4 with its 4,096-token window;
+   128) kv 4 with its 4,096-token window; and whisper-small's, 12 heads
+   of 64, kv 12: the encoder (1, 1500) non-causal, cross-attention of
+   224 and of 4 queries against 1,500 keys, the decoder's causal 224;
 6. the intra-chunk SSD kernel against its plain version at
    (G, L=64, H=80, P=64, N=64) f32 for G = 32, 14 and 5 (a 2048-token
    prompt, the serving run's mean, its smallest), rtol = atol = 2e-5,
@@ -134,9 +137,26 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    1e-3, the MoE's chosen experts compared first (a mismatch names the
    layer, the token and the probability gap); then all seven smoke
    configs at 1e-4;
-11. one {"kernels": [...]} line with times, bounds and launch counts
-   (flash: this slice's main path, phase 10; SSD: phase 7);
-12. the last line {"ok": true, "device": {...}}.
+11. the last two families' main path: whisper-small at full width and
+   depth (12 encoder + 12 decoder layers, d_model 768, 12 heads of 64,
+   vocab 51,865, tied embeddings; seeded weights, bf16 activations), a
+   Server with 4 slots and context 448 answering 8 requests, each 1,500
+   seeded frames through admit(extras=) and a seeded prompt of 4-224
+   tokens, 32 greedy tokens; exact launch counts (36 x 8 = 288 flash: 12
+   encoder, 12 decoder self- and 12 cross-attention a request; 0 SSD),
+   finite logits, the encoder's frames/s, the decoder's prompt tokens/s,
+   decode ms per step and tokens/s, peak memory, kernels a decode step;
+11b. xlstm-350m at full width and depth (24 layers, d_model 1024, 4
+   heads of 256, vocab 50,304), a Server with 2 slots answering 2
+   requests of 512 seeded tokens with 16 greedy tokens; the same numbers,
+   no flash or SSD launch, and the device kernels of a decode step;
+11c. card against host as phase 8: whisper-small (2 + 2 layers, with
+   seeded frames) and xlstm-350m (2 layers) at full width, f32, prompts
+   of 200 and 64 tokens, 8 teacher-forced decode steps, at 1e-3; then
+   both smoke configs at 1e-4;
+12. one {"kernels": [...]} line with times, bounds and launch counts
+   (flash: this slice's main path, phase 11; SSD: phase 7);
+13. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -244,15 +264,16 @@ def host_ms(fn, reps: int = 200) -> float:
     return elapsed / reps * 1e3
 
 
-def profile_kernels(fn, top: int = 6) -> str:
-    """The ``top`` kernels of one ``fn()`` by device time (torch.profiler),
-    as "name ms xcount" items."""
+def _device_us(e) -> float:
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
+def _profiled_kernels(fn) -> list:
+    """torch.profiler's rows of the device kernels of one ``fn()`` (after
+    one call that warms it up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
 
     fn()
     torch.cuda.synchronize()
@@ -260,14 +281,28 @@ def profile_kernels(fn, top: int = 6) -> str:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if device_us(e) > 0
+    return [e for e in prof.key_averages() if _device_us(e) > 0
             and "cuda" in str(e.device_type).lower()]
+
+
+def kernel_launches(fn) -> int:
+    """The device kernels one ``fn()`` launches (torch.profiler); fails
+    where the profiler sees none."""
+    n = sum(e.count for e in _profiled_kernels(fn))
+    check(n > 0, "the profiler recorded no device kernel")
+    return n
+
+
+def profile_kernels(fn, top: int = 6) -> str:
+    """The ``top`` kernels of one ``fn()`` by device time (torch.profiler),
+    as "name ms xcount" items."""
+    rows = _profiled_kernels(fn)
     if not rows:
         return "the profiler recorded no device time"
-    rows.sort(key=lambda e: -device_us(e))
-    total = sum(device_us(e) for e in rows) / 1e3
+    rows.sort(key=lambda e: -_device_us(e))
+    total = sum(_device_us(e) for e in rows) / 1e3
     return f"{total:.4f} ms in {sum(e.count for e in rows)} kernels; " + \
-        "; ".join(f"{e.key[:70]} {device_us(e) / 1e3:.4f} ms x{e.count}"
+        "; ".join(f"{e.key[:70]} {_device_us(e) / 1e3:.4f} ms x{e.count}"
                   for e in rows[:top])
 
 
@@ -1119,9 +1154,9 @@ def flash_phase(dev) -> dict:
           f"{torch.backends.cudnn.allow_tf32}")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(B, S, H, KV, hd, dtype):
-        return [torch.randn(B, S, h, hd, device=dev, generator=gen).to(dtype)
-                for h in (H, KV, KV)]
+    def inputs(B, S, H, KV, hd, dtype, T=None):
+        return [torch.randn(B, n, h, hd, device=dev, generator=gen).to(dtype)
+                for n, h in ((S, H), (T or S, KV), (T or S, KV))]
 
     def plain(q, k, v, causal, window):
         H = q.shape[2]
@@ -1163,8 +1198,8 @@ def flash_phase(dev) -> dict:
                   f"flash_attention {name}: an element is off by more "
                   f"than two bf16 steps of itself (rtol 2^-6, atol 1e-5)")
             tight = " and within two bf16 steps of each element"
-        (B, S, H, hd), KV = q.shape, k.shape[2]
-        print(f"[flash] {name} (B={B}, S={S}, H={H}, KV={KV}, hd={hd}, "
+        (B, S, H, hd), (T, KV) = q.shape, k.shape[1:3]
+        print(f"[flash] {name} (B={B}, S={S}, T={T}, H={H}, KV={KV}, hd={hd}, "
               f"{str(dtype)[6:]}, causal={causal}, window={window}), route "
               f"{ran}: max abs err {err:.3g} ({err / ref_max:.3g} of the "
               f"largest |output| {ref_max:.3g}) <= {tol}{tight}")
@@ -1194,7 +1229,11 @@ def flash_phase(dev) -> dict:
     print(f"[flash] main shape by route: bf16 (tensor cores) {ms:.4f} ms, "
           f"f32 (FMA kernel) {f32_ms:.4f} ms, scaled_dot_product_attention "
           f"bf16 {lib_ms:.4f} ms")
-    families = [family_case(hold, inputs, *case) for case in FAMILY_FLASH]
+    families = [family_case(hold, inputs, arch, B, S, S, H, KV, hd, True,
+                            window)
+                for arch, B, S, H, KV, hd, window in FAMILY_FLASH]
+    whisper = [family_case(hold, inputs, *case, None)
+               for case in WHISPER_FLASH]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -1203,7 +1242,7 @@ def flash_phase(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "f32_ms": f32_ms,
             "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True,
-            "family_shapes": families}
+            "family_shapes": families, "whisper_shapes": whisper}
 
 
 # bf16 causal prefill shapes of the transformer families (phase 5):
@@ -1211,9 +1250,18 @@ def flash_phase(dev) -> dict:
 FAMILY_FLASH = [("llama3.2-1b", 1, 2048, 32, 8, 64, None),
                 ("qwen2-vl-7b", 1, 2048, 28, 4, 128, None),
                 ("starcoder2-15b", 1, 4608, 48, 4, 128, 4096)]
+# whisper-small's bf16 prefill shapes (phase 5), 12 heads of 64, kv 12:
+# (name, B, S, T, H, KV, hd, causal)
+WHISPER_FLASH = [
+    ("whisper encoder", 1, 1500, 1500, 12, 12, 64, False),
+    ("whisper cross 224", 1, 224, 1500, 12, 12, 64, False),
+    ("whisper cross 4", 1, 4, 1500, 12, 12, 64, False),
+    ("whisper decoder self 224", 1, 224, 224, 12, 12, 64, True),
+]
 
 
-def family_case(hold, inputs, arch, B, S, H, KV, hd, window) -> dict:
+def family_case(hold, inputs, name, B, S, T, H, KV, hd, causal,
+                window) -> dict:
     """One family's prefill shape: held to the plain version on the
     tensor-core route, timed beside scaled_dot_product_attention (on the
     kv heads expanded, with the window as a mask) and the bound of the
@@ -1223,16 +1271,20 @@ def family_case(hold, inputs, arch, B, S, H, KV, hd, window) -> dict:
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import expand_kv
 
-    q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16)
-    err, ran = hold(f"{arch} prefill bf16", q, k, v, True, window)
-    check(ran == "wgmma", f"flash {arch} shape took the {ran} route, not "
+    q, k, v = inputs(B, S, H, KV, hd, torch.bfloat16, T)
+    err, ran = hold(f"{name} bf16", q, k, v, causal, window)
+    check(ran == "wgmma", f"flash {name} shape took the {ran} route, not "
           f"the tensor cores")
-    ms = cuda_ms(lambda: attention(q, k, v, causal=True, window=window),
+    ms = cuda_ms(lambda: attention(q, k, v, causal=causal, window=window),
                  reps=20)
+    # the device's time alone: at the short shapes the wrapper's host
+    # time per call may exceed the kernel's
+    dev_ms = device_ms(lambda: attention(q, k, v, causal=causal,
+                                         window=window))
     qt, kt, vt = q.transpose(1, 2), expand_kv(k, H), expand_kv(v, H)
     if window is None:
         def lib():
-            return sdpa(qt, kt, vt, is_causal=True)
+            return sdpa(qt, kt, vt, is_causal=causal)
     else:
         i = torch.arange(S, device=q.device)
         band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
@@ -1241,18 +1293,22 @@ def family_case(hold, inputs, arch, B, S, H, KV, hd, window) -> dict:
             return sdpa(qt, kt, vt, attn_mask=band)
     lib()
     lib_ms = cuda_ms(lib, reps=20)
-    pairs = sum(min(i + 1, window or S) for i in range(S))
-    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    # keys in band of each query row (causal and windowed calls: S == T)
+    pairs = (sum(min(i + 1, window or T) for i in range(S)) if causal
+             else S * T)
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * T * KV * hd)
     n_ops = 4 * B * H * hd * pairs
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    print(f"[flash] {arch} prefill shape: kernel {ms:.4f} ms, "
+    print(f"[flash] {name} shape: kernel {ms:.4f} ms (events, back to "
+          f"back), {dev_ms:.4f} ms (device time), "
           f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.4f} "
           f"ms ({b_by}: {pairs} live pairs, {n_ops / 1e9:.2f} GFLOP), "
           f"{ms / b_ms:.2f}x the bound")
-    return {"config": arch, "shape": [B, S, H, hd], "kv_heads": KV,
-            "window": window, "route_taken": ran, "max_abs_err": err,
-            "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "live_pairs": pairs}
+    return {"config": name, "shape": [B, S, H, hd], "keys": T,
+            "kv_heads": KV, "causal": causal, "window": window,
+            "route_taken": ran, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "live_pairs": pairs}
 
 
 def ssd_phase(dev) -> dict:
@@ -1340,14 +1396,18 @@ class _Watched:
 
 
 def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
-                lengths=None, gen=SERVE_GEN, n_layers=None,
-                tag="serve") -> dict:
-    """Phases 7, 10 and 10b: ``arch`` at full width (cut to ``n_layers``
-    where given) behind the Server: seeded prompts of ``lengths`` tokens
-    (by default SERVE_REQUESTS seeded lengths in 256-2048), ``gen``
-    greedy tokens each; the vlm family's requests carry seeded patch
-    embeds through admit(extras=).  Exact kernel launches, finite
-    logits, prefill tokens/s, decode ms a step, peak memory."""
+                lengths=None, gen=SERVE_GEN, n_layers=None, tag="serve",
+                decode_launches=False) -> dict:
+    """Phases 7, 10, 10b, 11 and 11b: ``arch`` at full width (cut to
+    ``n_layers`` where given) behind the Server: seeded prompts of
+    ``lengths`` tokens (by default SERVE_REQUESTS seeded lengths in
+    256-2048), ``gen`` greedy tokens each; the vlm family's requests carry
+    seeded patch embeds and the encdec family's seeded frames through
+    admit(extras=).  Exact kernel launches, finite logits, prefill
+    tokens/s (for encdec also the encoder's frames/s and the decoder's
+    prompt tokens/s), decode ms a step, peak memory; with
+    ``decode_launches`` also the device kernels of one decode step of
+    every slot (torch.profiler, after the kernels' counts are read)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1367,7 +1427,9 @@ def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
     n_params = sum(p.numel() for p in params.parameters())
     cut = ("" if n_layers is None
            else f" (cut from {get_config(arch).n_layers})")
-    print(f"[{tag}] {arch}: {cfg.n_layers} layers{cut}, d_model "
+    enc_layers = (f" + {cfg.n_enc_layers} encoder layers over "
+                  f"{cfg.enc_seq} frames" if cfg.family == "encdec" else "")
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers{cut}{enc_layers}, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd} (kv "
           f"{cfg.n_kv_heads}), window {cfg.window}, {n_params} parameters "
           f"({n_params * 4 / 1e9:.2f} GB f32) initialised on the card in "
@@ -1384,11 +1446,30 @@ def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
         if cfg.family == "vlm":
             extras = {"patch_embeds": torch.as_tensor(rng.standard_normal(
                 (cfg.n_patches, cfg.d_model)).astype(np.float32))}
+        if cfg.family == "encdec":
+            extras = {"frames": torch.as_tensor(rng.standard_normal(
+                (cfg.enc_seq, cfg.d_model)).astype(np.float32))}
         requests.append((rng.integers(0, cfg.vocab, n), extras))
     print(f"[{tag}] prompt lengths {lengths.tolist()}, context {context}, "
           f"{slots} slots, {gen} greedy tokens each"
           + (f", {cfg.n_patches} patch embeds a request"
-             if cfg.family == "vlm" else ""))
+             if cfg.family == "vlm" else "")
+          + (f", {cfg.enc_seq} frames a request" if cfg.family == "encdec"
+             else ""))
+    # the encoder's share of each prefill, timed where the model calls it
+    enc = {"s": 0.0, "frames": 0}
+    if cfg.family == "encdec":
+        encode = params.encode
+
+        def timed_encode(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = encode(frames)
+            torch.cuda.synchronize()
+            enc["s"] += time.perf_counter() - t
+            enc["frames"] += frames.shape[0] * frames.shape[1]
+            return out
+        params.encode = timed_encode
     srv = Server(model, params, slots=slots, context=context)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1422,16 +1503,17 @@ def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
                 "ssd_intra_chunk": ssd_intra_chunk.launches}
     print(f"[{tag}] launches: {launches}")
     # per prefill: one flash launch per attention layer (hybrid: per
-    # shared-block application), one SSD launch per Mamba2 layer; decode
-    # runs neither kernel
+    # shared-block application; encdec: per encoder layer and twice per
+    # decoder layer, self and cross; none for the xLSTM), one SSD launch
+    # per Mamba2 layer; decode runs neither kernel
     n_req = len(lengths)
-    if cfg.family == "hybrid":
-        want = {"flash_attention":
-                cfg.n_layers // cfg.shared_attn_every * n_req,
-                "ssd_intra_chunk": cfg.n_layers * n_req}
-    else:
-        want = {"flash_attention": cfg.n_layers * n_req,
-                "ssd_intra_chunk": 0}
+    flash_a_prefill = {
+        "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
+        "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+        "ssm": 0}.get(cfg.family, cfg.n_layers)
+    want = {"flash_attention": flash_a_prefill * n_req,
+            "ssd_intra_chunk": (cfg.n_layers * n_req
+                                if cfg.family == "hybrid" else 0)}
     check(launches == want, f"{arch}: kernel launches {launches} on the "
           f"serving path, expected {want}")
     check(len(done) == n_req and all(len(d) == gen for d in done),
@@ -1445,13 +1527,30 @@ def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
                  decode_ms_per_step=decode_s / steps * 1e3,
                  decode_tok_s=decode_tokens / decode_s,
                  peak_gib=peak / 2**30)
+    split = ""
+    if cfg.family == "encdec":
+        check(enc["frames"] == n_req * cfg.enc_seq,
+              f"{arch}: the encoder saw {enc['frames']} frames")
+        stats.update(encoder_frames_s=enc["frames"] / enc["s"],
+                     decoder_prefill_tok_s=float(lengths.sum())
+                     / (prefill_s - enc["s"]))
+        split = (f": encoder {enc['s']:.3f} s for {enc['frames']} frames "
+                 f"({stats['encoder_frames_s']:.1f} frames/s), decoder "
+                 f"{prefill_s - enc['s']:.3f} s "
+                 f"({stats['decoder_prefill_tok_s']:.1f} prompt tokens/s)")
     print(f"[{tag}] {arch}: {len(done)} requests, {int(lengths.sum())} "
           f"prompt tokens, {n_req * gen} generated, logits finite, wall "
           f"{wall:.3f} s; prefill {prefill_s:.3f} s "
-          f"({stats['prefill_tok_s']:.1f} tokens/s); {steps} decode steps "
+          f"({stats['prefill_tok_s']:.1f} tokens/s{split}); {steps} decode steps "
           f"in {decode_s:.3f} s ({stats['decode_ms_per_step']:.3f} ms per "
           f"step, {stats['decode_tok_s']:.1f} tokens/s); "
           f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    if decode_launches:
+        index = int(srv.lengths.max())
+        stats["decode_launches"] = kernel_launches(
+            lambda: model.decode(params, srv.tokens, srv.caches, index))
+        print(f"[{tag}] {arch}: one decode step of {slots} slots launches "
+              f"{stats['decode_launches']} device kernels")
     del srv, params, model
     torch.cuda.empty_cache()
     return stats
@@ -1463,7 +1562,7 @@ def _routing_hooks(params, side: str, log: dict) -> None:
     ``log[side]``, in call order."""
     from repro_torch.models import moe
 
-    for i, layer in enumerate(params.layers):
+    for i, layer in enumerate(getattr(params, "layers", ())):
         if isinstance(getattr(layer, "mlp", None), moe.MoE):
             def hook(mod, args, out, i=i):
                 probs = moe.router_probs(mod, args[0])
@@ -1477,8 +1576,8 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
                  seed=1) -> list:
     """The card's path against the plain path on the host, the same
     seeded weights on both: ``prompts`` (the vlm family's with seeded
-    patch embeds over up to half of each) prefilled and spliced into one
-    slot each, then ``steps`` teacher-forced decode steps at the Server's
+    patch embeds over up to half of each, the encdec family's with seeded
+    frames) prefilled and spliced into one slot each, then ``steps`` teacher-forced decode steps at the Server's
     shared index;
     the MoE's chosen experts compared first, call by call (a mismatch
     names the layer, the token and the gap between the k-th and
@@ -1498,9 +1597,16 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
     # a vlm request's image covers at most half its prompt: qwen2-vl's
     # dynamic resolution gives fewer patches than n_patches to a smaller
     # image (the reference writes however many it is given)
-    extras = [{"patch_embeds": torch.as_tensor(rng.standard_normal(
-        (1, min(cfg.n_patches, len(p) // 2), cfg.d_model)
-    ).astype(np.float32))} if cfg.family == "vlm" else {} for p in prompts]
+    def extra(prompt):
+        if cfg.family == "vlm":
+            return {"patch_embeds": torch.as_tensor(rng.standard_normal(
+                (1, min(cfg.n_patches, len(prompt) // 2), cfg.d_model)
+            ).astype(np.float32))}
+        if cfg.family == "encdec":
+            return {"frames": torch.as_tensor(rng.standard_normal(
+                (1, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+        return {}
+    extras = [extra(p) for p in prompts]
     index = max(len(p) for p in prompts)     # the Server's shared index
 
     def run(model, params, forced):
@@ -1629,6 +1735,63 @@ def families_card_vs_host_phase(dev) -> None:
         card_vs_host(dev, cfg, prompts, context=64, steps=4, tol=1e-4,
                      what="card-host-smoke")
     print(f"[card-host] phase 10c wall {time.perf_counter() - t:.1f} s")
+
+
+# the last two families (phases 11-11c): whisper-small, this slice's main
+# path, a Server of 4 slots at whisper's text context of 448 answering 8
+# requests, each 1,500 seeded frames and a seeded prompt of 4-224 tokens
+# (whisper's previous-text prompt is capped near half its context), 32
+# greedy tokens; then xlstm-350m, 2 slots answering 2 requests of 512
+# tokens, 16 greedy tokens
+WHISPER_ARCH, XLSTM_ARCH = "whisper-small", "xlstm-350m"
+WHISPER_SLOTS, WHISPER_CONTEXT, WHISPER_REQUESTS = 4, 448, 8
+
+
+def last_families_phase(dev) -> dict:
+    """Phases 11 and 11b: whisper-small and xlstm-350m at full width and
+    depth behind the Server."""
+    import numpy as np
+
+    t = time.perf_counter()
+    lengths = np.random.default_rng(11).integers(4, 225, WHISPER_REQUESTS)
+    whisper = serve_phase(dev, WHISPER_ARCH, slots=WHISPER_SLOTS,
+                          context=WHISPER_CONTEXT, lengths=lengths,
+                          tag="serve-whisper", decode_launches=True)
+    print(f"[serve-whisper] phase 11 wall {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    xlstm = serve_phase(dev, XLSTM_ARCH, slots=2, context=1024,
+                        lengths=[512, 512], gen=FAMILY_GEN,
+                        tag="serve-xlstm", decode_launches=True)
+    print(f"[serve-xlstm] phase 11b wall {time.perf_counter() - t:.1f} s")
+    return {"whisper": whisper, "xlstm": xlstm}
+
+
+def last_families_card_vs_host_phase(dev) -> None:
+    """Phase 11c: whisper-small (2 + 2 layers, with frames) and
+    xlstm-350m (2 layers) at full width, f32, card against host at 1e-3;
+    then both smoke configs at 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    for arch in (WHISPER_ARCH, XLSTM_ARCH):
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+        if cfg.family == "encdec":
+            cfg = cfg.replace(n_enc_layers=2)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (200, 64)]
+        card_vs_host(dev, cfg, prompts, context=WHISPER_CONTEXT, steps=8,
+                     tol=1e-3, what="card-host")
+    for arch in (WHISPER_ARCH, XLSTM_ARCH):
+        cfg = get_smoke_config(arch)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (20, 13)]
+        card_vs_host(dev, cfg, prompts, context=64, steps=4, tol=1e-4,
+                     what="card-host-smoke")
+    print(f"[card-host] phase 11c wall {time.perf_counter() - t:.1f} s")
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4     # the main training path
@@ -2303,7 +2466,14 @@ def main() -> int:
         st["arch"]: st["flash_attention"] for st in served["others"]}
     families_card_vs_host_phase(dev)
 
-    # ---- 11. kernels line ---------------------------------------------------
+    # ---- 11. the last two families: whisper-small (this slice's main
+    # path), xlstm-350m, card against host -------------------------------
+    last = last_families_phase(dev)
+    flash_entry["llama_launches"] = flash_entry["launches"]
+    flash_entry["launches"] = last["whisper"]["flash_attention"]
+    last_families_card_vs_host_phase(dev)
+
+    # ---- 12. kernels line ---------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -2348,13 +2518,19 @@ def main() -> int:
           f"{serve_stats['decode_tok_s']:.1f} decode tokens/s; training "
           f"{trained['step_ms']:.1f} ms a step, {trained['tokens_s']:.1f} "
           f"tokens/s, peak {trained['peak_gib']:.3f} GiB")
-    for st in [served["main"]] + served["others"]:
+    for st in [served["main"]] + served["others"] + [last["whisper"],
+                                                     last["xlstm"]]:
         print(f"[summary] serving {st['arch']} ({st['layers']} layers): "
               f"{st['prefill_tok_s']:.1f} prefill tokens/s, "
               f"{st['decode_ms_per_step']:.3f} ms per decode step, "
               f"{st['decode_tok_s']:.1f} decode tokens/s, peak "
               f"{st['peak_gib']:.3f} GiB, {st['flash_attention']} flash "
-              f"launches")
+              f"launches"
+              + (f", encoder {st['encoder_frames_s']:.1f} frames/s, decoder "
+                 f"{st['decoder_prefill_tok_s']:.1f} prompt tokens/s"
+                 if "encoder_frames_s" in st else "")
+              + (f", {st['decode_launches']} kernels a decode step"
+                 if "decode_launches" in st else ""))
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 """Where the time of the port's serving path goes, on one GPU.
 
     PYTHONPATH=src python3 scripts/profile_serve_torch.py [--arch NAME]
+        [--prompt-len N] [--context C]
 
-Builds the config (zamba2-2.7b unless ``--arch`` names another ported
-one, e.g. llama3.2-1b) at full width and depth (seeded random weights,
-bf16 activations) on the CUDA device, warms up, then traces with
-torch.profiler (a) one prefill of a 2048-token prompt and (b) 8 decode
-steps of a Server with 4 active slots at context 4096.  For each window
+Builds the config (zamba2-2.7b unless ``--arch`` names another, e.g.
+llama3.2-1b) at full width and depth (seeded random weights, bf16
+activations) on the CUDA device, warms up, then traces with
+torch.profiler (a) one prefill of an N-token prompt (2048 by default)
+and (b) 8 decode steps of a Server with 4 active slots at context C
+(4096 by default).  Encoder-decoder configs (whisper-small) get seeded
+frames with every prompt, through ``Server.admit(extras=)``.  For each window
 it prints the wall time (host clock around work that ends in a
 synchronise), the device's busy time (the sum of its kernels' and
 copies' times; one stream, so they do not overlap), the idle share, the
@@ -78,6 +81,8 @@ def report(what: str, prof, wall_s: float, kinds=KINDS) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zamba2-2.7b")
+    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--context", type=int, default=4096)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -98,21 +103,30 @@ def main(argv=None) -> int:
     model = make_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(0)
-    srv = Server(model, params, slots=4, context=4096)
-    prompt = rng.integers(0, cfg.vocab, 2048)
+    n, context = args.prompt_len, args.context
+
+    def extras():
+        if cfg.family != "encdec":
+            return None
+        return {"frames": torch.as_tensor(rng.standard_normal(
+            (cfg.enc_seq, cfg.d_model)).astype(np.float32), device=dev)}
+
+    srv = Server(model, params, slots=4, context=context)
+    prompt = rng.integers(0, cfg.vocab, n)
     for s in range(4):                               # warm-up, fill slots
-        srv.admit(s, rng.integers(0, cfg.vocab, 512))
+        srv.admit(s, rng.integers(0, cfg.vocab, min(512, n)), extras())
     srv.step()
     torch.cuda.synchronize()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    tokens = torch.as_tensor(prompt[None], device=dev)
+    batch = {"tokens": torch.as_tensor(prompt[None], device=dev)}
+    batch.update({k: v[None] for k, v in (extras() or {}).items()})
     with profile(activities=acts) as prof:
         t = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}, context=4096)
+        model.prefill(params, batch, context=context)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"{cfg.name} prefill 2048 tokens, {cfg.n_layers} layers", prof,
+    report(f"{cfg.name} prefill {n} tokens, {cfg.n_layers} layers", prof,
            wall)
 
     steps = 8

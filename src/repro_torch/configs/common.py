@@ -1,10 +1,10 @@
 """Architecture registry of the port.
 
 ``get_config(name)``: the full configuration.  ``get_smoke_config(name)``:
-the reduced configuration of the same family for CPU tests.  Only the
-architectures the port serves are registered (the hybrid zamba2-2.7b and
-the dense, MoE and VLM transformers); asking for another (whisper-small,
-xlstm-350m) raises an error that says where the rest are planned.
+the reduced configuration of the same family for CPU tests.  Every
+architecture of the reference is registered: the hybrid zamba2-2.7b, the
+dense, MoE and VLM transformers, the encoder-decoder whisper-small and
+the xLSTM xlstm-350m.
 """
 from __future__ import annotations
 
@@ -26,10 +26,8 @@ def _lookup(table: Dict[str, Callable[[], ModelConfig]],
             name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in table:
-        raise KeyError(
-            f"architecture {name!r} is not ported to PyTorch yet (ported: "
-            f"{', '.join(sorted(table))}); ROADMAP.md queue 1 lists the "
-            f"others")
+        raise KeyError(f"unknown architecture {name!r} (known: "
+                       f"{', '.join(sorted(table))})")
     return table[name]().validate()
 
 
@@ -42,7 +40,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 def list_archs():
-    """The names of the ported architectures, sorted."""
+    """The names of the registered architectures, sorted."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 
@@ -50,4 +48,4 @@ def list_archs():
 def _ensure_loaded():
     from . import (granite_moe_1b, llama3_2_1b, mixtral_8x22b,  # noqa: F401
                    olmo_1b, qwen2_vl_7b, smollm_360m, starcoder2_15b,
-                   zamba2_2_7b)
+                   whisper_small, xlstm_350m, zamba2_2_7b)

@@ -60,17 +60,22 @@ def _flat(tree: Mapping, prefix: str = ""):
 
 
 def _stacking(cfg):
-    """(the reference's name for its stacked per-layer leaves, their
-    leading dims): hybrid Mamba2 layers ``mamba.<leaf>`` (G, per, ...),
-    transformer layers ``layers.<leaf>`` (L, ...).  The port names layer
-    ``i`` of that row-major stack ``layers.<i>``."""
+    """The reference's stacks of per-layer leaves, each (its name, the
+    leaves' leading dims, the port's name): hybrid Mamba2 layers
+    ``mamba.<leaf>`` (G, per, ...) as ``layers``, transformer layers
+    ``layers.<leaf>`` (L, ...), the encoder-decoder's ``enc_layers`` and
+    ``dec_layers``, the xLSTM's ``pairs``.  The port names layer ``i`` of
+    a row-major stack ``<port name>.<i>``."""
     if cfg.family == "hybrid":
         from .models.hybrid import groups
-        return "mamba", groups(cfg)
-    if cfg.family in ("dense", "moe", "vlm"):
-        return "layers", (cfg.n_layers,)
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is "
-                              f"not ported (ROADMAP.md queue 1)")
+        return [("mamba", groups(cfg), "layers")]
+    if cfg.family == "encdec":
+        return [("enc_layers", (cfg.n_enc_layers,), "enc_layers"),
+                ("dec_layers", (cfg.n_layers,), "dec_layers")]
+    if cfg.family == "ssm":
+        from .models.xlstm_model import pairs
+        return [("pairs", (pairs(cfg),), "pairs")]
+    return [("layers", (cfg.n_layers,), "layers")]
 
 
 def model_params_from_jax(cfg, params: Mapping,
@@ -79,21 +84,22 @@ def model_params_from_jax(cfg, params: Mapping,
     per-layer leaves stacked) -> the port's state dict (float32 CPU
     tensors), or, with ``into``, that model with the weights loaded (on
     its own device).  Names and shapes match one for one: the hybrid's
-    ``mamba.<leaf>[g, i]`` becomes ``layers.<g * per + i>.<leaf>``, the
-    transformer's ``layers.<leaf>[i]`` becomes ``layers.<i>.<leaf>``
+    ``mamba.<leaf>[g, i]`` becomes ``layers.<g * per + i>.<leaf>``, every
+    other stack's ``<stack>.<leaf>[i]`` becomes ``<stack>.<i>.<leaf>``
     (MoE experts, biases and all); tied configs have no ``embed.head``."""
-    stack, lead = _stacking(cfg)
-    n = int(np.prod(lead))
+    stacks = _stacking(cfg)
     state: Dict[str, torch.Tensor] = {}
     for name, a in _flat(params):
-        if name.startswith(stack + "."):
-            if a.shape[:len(lead)] != tuple(lead):
-                raise ValueError(f"{name}: leading dims "
-                                 f"{a.shape[:len(lead)]} are not {lead}")
-            rows = a.reshape((n,) + a.shape[len(lead):])
-            for i in range(n):
-                state[f"layers.{i}.{name[len(stack) + 1:]}"] = \
-                    torch.from_numpy(np.array(rows[i], np.float32))
+        for stack, lead, port in stacks:
+            if name.startswith(stack + "."):
+                if a.shape[:len(lead)] != tuple(lead):
+                    raise ValueError(f"{name}: leading dims "
+                                     f"{a.shape[:len(lead)]} are not {lead}")
+                rows = a.reshape((-1,) + a.shape[len(lead):])
+                for i, row in enumerate(rows):
+                    state[f"{port}.{i}.{name[len(stack) + 1:]}"] = \
+                        torch.from_numpy(np.array(row, np.float32))
+                break
         else:
             state[name] = torch.from_numpy(np.array(a, np.float32))
     if into is None:
@@ -106,18 +112,21 @@ def model_params_to_jax(cfg, params: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of ``model_params_from_jax``: a state dict (tensors on
     any device) -> the reference's parameter pytree as nested dicts of
     float32 numpy arrays, per-layer leaves stacked."""
-    stack, lead = _stacking(cfg)
-    n = int(np.prod(lead))
+    stacks = _stacking(cfg)
     out: Dict[str, Any] = {}
-    stacked: Dict[str, list] = {}
+    stacked: Dict[tuple, list] = {}
     for name, t in params.items():
         a = t.detach().to("cpu", copy=True).float().numpy()
-        if name.startswith("layers."):
-            layer, leaf = name[7:].split(".", 1)
-            stacked.setdefault(leaf, [None] * n)[int(layer)] = a
+        for s, (_, lead, port) in enumerate(stacks):
+            if name.startswith(port + "."):
+                layer, leaf = name[len(port) + 1:].split(".", 1)
+                stacked.setdefault((s, leaf), [None] * int(np.prod(lead)))[
+                    int(layer)] = a
+                break
         else:
             _put(out, name, a)
-    for leaf, arrays in stacked.items():
+    for (s, leaf), arrays in stacked.items():
+        stack, lead, _ = stacks[s]
         _put(out, f"{stack}.{leaf}",
              np.stack(arrays).reshape(tuple(lead) + arrays[0].shape))
     return out

@@ -9,10 +9,13 @@ request frees its slot and the next queued prompt is prefilled into it
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 8 --batch-slots 4 --prompt-len 512 --gen 32 --context 4096
 
-``--arch`` takes every ported configuration (``configs.list_archs()``).
-It runs on the CUDA device unless ``--device cpu`` is given.  As in the
+``--arch`` takes every configuration (``configs.list_archs()``).  It runs
+on the CUDA device unless ``--device cpu`` is given.  As in the
 reference, the command line serves text only: the vlm family's patch
-embeds reach a request through ``Server.admit(extras=)``.
+embeds and the encdec family's frames reach a request through
+``Server.admit(extras=)``.  An encdec request cannot be served without
+its frames, so for that family the command line raises ``ValueError``
+(the reference's command line fails there with a ``KeyError``).
 """
 from __future__ import annotations
 
@@ -58,8 +61,8 @@ class Server:
     def admit(self, slot: int, prompt: np.ndarray, extras=None):
         """Prefill one prompt and splice its cache into `slot`.
         ``extras``: the request's other inputs without the batch axis
-        (the vlm family's "patch_embeds" (n_patches, D)), as arrays or
-        tensors."""
+        (the vlm family's "patch_embeds" (n_patches, D), the encdec
+        family's "frames" (enc_seq, D)), as arrays or tensors."""
         dev = self.model.device
         batch = {"tokens": torch.as_tensor(np.asarray(prompt)[None],
                                            dtype=torch.int64, device=dev)}
@@ -113,6 +116,12 @@ def main(argv=None):
 
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: an encdec request needs its frames ({cfg.enc_seq}, "
+            f"{cfg.d_model}), which the command line does not make; serve "
+            f"it through Server.admit(slot, prompt, extras={{'frames': "
+            f"...}})")
     model = make_model(cfg, device=args.device)
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)

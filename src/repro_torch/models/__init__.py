@@ -1,5 +1,5 @@
-"""Model code of the port: the hybrid (zamba2) family and the decoder-only
-transformer families (dense, moe, vlm) that the serving path runs.
-Mirrors ``repro.models``; encdec and ssm wait (see ROADMAP.md)."""
+"""Model code of the port: every family of the reference (the hybrid
+zamba2, the decoder-only dense / moe / vlm transformers, the
+encoder-decoder whisper and the xLSTM).  Mirrors ``repro.models``."""
 from .config import ModelConfig, ShapeConfig, pad_vocab
 from .model import Model, make_model

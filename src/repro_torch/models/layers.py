@@ -1,17 +1,18 @@
 """Shared building blocks of the served models, in PyTorch.
 
-Mirrors ``repro.models.layers`` for what the hybrid and the decoder-only
-transformer families run: norms, RoPE and qwen2-vl's M-RoPE,
-self-attention with optional q/k/v biases (prefill through the
-flash-attention kernel, decode against a KV cache, a ring buffer for
-sliding-window configs), the SwiGLU and GELU MLPs, the tied or untied
-embedding and the logits with their padded-vocabulary mask.
-Cross-attention (the whisper decoder's) is not ported yet.  Parameters
-keep the reference's shapes and names (``wq`` is (D, H, hd), ...), so
-``repro_torch.convert`` carries weights across by name.  The reference's
-sharding annotations have no counterpart: the port runs on one device.
-Parameters are held without gradients, as serving needs them; a trainer
-turns gradients on (``params.requires_grad_(True)``).
+Mirrors ``repro.models.layers``: norms, RoPE and qwen2-vl's M-RoPE,
+attention with optional q/k/v biases (every full-sequence call through
+the flash-attention kernel; decode against a KV cache, a ring buffer for
+sliding-window configs), the whisper decoder's cross-attention (k/v from
+the encoder's output, static through decode) and attention without
+RoPE (whisper's learned absolute positions), the SwiGLU and GELU MLPs,
+the tied or untied embedding and the logits with their
+padded-vocabulary mask.  Parameters keep the reference's shapes and
+names (``wq`` is (D, H, hd), ...), so ``repro_torch.convert`` carries
+weights across by name.  The reference's sharding annotations have no
+counterpart: the port runs on one device.  Parameters are held without
+gradients, as serving needs them; a trainer turns gradients on
+(``params.requires_grad_(True)``).
 """
 from __future__ import annotations
 
@@ -175,11 +176,19 @@ def _out_proj(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return y.flatten(-2) @ wo.to(y.dtype).reshape(H * K, D)
 
 
-def _qkv(p: Attention, x: torch.Tensor):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
-    if p.bq is not None:
+def _q(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p.wq)
+    return q if p.bq is None else q + p.bq.to(x.dtype)
+
+
+def _qkv(p: Attention, x: torch.Tensor,
+         xkv: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``xkv`` (cross-attention) or ``x``."""
+    xkv = x if xkv is None else xkv
+    q, k, v = _q(p, x), _proj(xkv, p.wk), _proj(xkv, p.wv)
+    if p.bk is not None:
         dt = x.dtype
-        q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
+        k, v = k + p.bk.to(dt), v + p.bv.to(dt)
     return q, k, v
 
 
@@ -205,18 +214,25 @@ def _gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                       positions: Optional[torch.Tensor] = None,
-                      causal: bool = True, window: Optional[int] = None):
-    """Full-sequence self-attention (train / prefill) through the
-    flash-attention kernel.  ``positions``: (B, S), or (B, S, 3) for
-    M-RoPE; 0..S-1 by default.  Returns (y, (k, v)); k/v build the decode
-    cache."""
-    q, k, v = _qkv(p, x)
-    if positions is None:
-        positions = torch.arange(x.shape[1],
-                                 device=x.device).expand(x.shape[:2])
-    cos, sin = _rope(cfg, positions)
-    q = apply_rope(q, cos, sin, cfg.bf16_elementwise)
-    k = apply_rope(k, cos, sin, cfg.bf16_elementwise)
+                      causal: bool = True,
+                      xkv: Optional[torch.Tensor] = None,
+                      window: Optional[int] = None, use_rope: bool = True):
+    """Full-sequence attention (train / prefill / encoder / cross) through
+    the flash-attention kernel.  ``xkv`` (B, T, D): the keys' and values'
+    input (cross-attention), ``x`` by default.  ``positions``: (B, S), or
+    (B, S, 3) for M-RoPE; 0..S-1 by default.  With ``use_rope`` q is
+    rotated, and k too unless it comes from ``xkv``.  Returns
+    (y, (k, v)); k/v build the decode cache (or, for cross-attention,
+    the static encoder memory)."""
+    q, k, v = _qkv(p, x, xkv)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1],
+                                     device=x.device).expand(x.shape[:2])
+        cos, sin = _rope(cfg, positions)
+        q = apply_rope(q, cos, sin, cfg.bf16_elementwise)
+        if xkv is None:
+            k = apply_rope(k, cos, sin, cfg.bf16_elementwise)
     y = attention(q, k, v, causal=causal, window=window)
     return _out_proj(y, p.wo), (k, v)
 
@@ -234,20 +250,32 @@ def init_kv_cache(cfg: ModelConfig, batch: int, context: int,
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache,
-                     index: int) -> Tuple[torch.Tensor, KVCache]:
+                     cache: KVCache, index: int, *,
+                     enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     = None,
+                     use_rope: bool = True) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode.  x: (B, 1, D); index: the absolute position,
     shared by the batch.  Writes row ``index % C`` of the cache in place
     (the reference returns an updated copy) and returns it.  Masking is by
     the absolute positions in ``cache.pos``, so ring overwrites are
-    exact.  M-RoPE configs take ``index`` as all three components."""
+    exact.  M-RoPE configs take ``index`` as all three components.
+    ``enc_kv`` ((B, T, KV, hd) each, in x's type): cross-attention over
+    that static memory, unmasked and unrotated; the cache is returned
+    untouched."""
+    if enc_kv is not None:
+        k, v = enc_kv
+        logits = _gqa_scores(_q(p, x), k,
+                             1.0 / math.sqrt(cfg.hd)).float()
+        probs = torch.softmax(logits, -1).to(x.dtype)
+        return _out_proj(_gqa_combine(probs, v), p.wo), cache
     B = x.shape[0]
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x)
-    cos, sin = _rope(cfg, pos[..., None].expand(B, 1, 3) if cfg.mrope
-                     else pos)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = _rope(cfg, pos[..., None].expand(B, 1, 3) if cfg.mrope
+                         else pos)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     slot = index % cache.k.shape[1]
     cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v[:, 0].to(cache.v.dtype)

@@ -9,9 +9,10 @@ Mirrors ``repro.models.model.Model`` and its ``lm_loss``:
   init_caches(batch, context)
   splice_cache(caches, cache_one, slot)
 
-The hybrid family (zamba2) and the decoder-only transformer families
-(dense, moe, vlm) are ported; asking for another (encdec, ssm) raises.
-The model lives on one device: CUDA unless the caller names the CPU.
+Every family of the reference is ported: the hybrid (zamba2), the
+decoder-only transformers (dense, moe, vlm), the encoder-decoder (encdec,
+whisper) and the xLSTM (ssm).  The model lives on one device: CUDA unless
+the caller names the CPU.
 """
 from __future__ import annotations
 
@@ -23,14 +24,16 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import DeviceLike, resolve_device
-from . import hybrid
+from . import encdec, hybrid
 from . import transformer as tfm
+from . import xlstm_model
 from .config import ModelConfig
 from .layers import KVCache
 from .ssm import SSMState
+from .xlstm import MLSTMState, SLSTMState
 
-_FAMILY = {"dense": tfm, "moe": tfm, "vlm": tfm, "hybrid": hybrid}
-PORTED_FAMILIES = ("hybrid", "dense", "moe", "vlm")
+_FAMILY = {"dense": tfm, "moe": tfm, "vlm": tfm, "encdec": encdec,
+           "hybrid": hybrid, "ssm": xlstm_model}
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
@@ -73,7 +76,7 @@ class Model:
     def init(self, seed: Union[int, torch.Generator] = 0) -> nn.Module:
         """Fresh parameters on the model's device, drawn from ``seed`` (a
         ``torch.Generator`` on that device, or an integer seeding one):
-        a ``TransformerLM`` or a ``HybridLM``."""
+        a ``TransformerLM``, ``HybridLM``, ``EncDecLM`` or ``XLSTMLM``."""
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -82,8 +85,11 @@ class Model:
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]):
         """(loss, metrics) of a batch {"tokens", "labels"} (B, S), and for
         the vlm family the optional "positions" (B, S, 3) and
-        "patch_embeds" (B, n_patches, D)."""
-        if self.cfg.family == "vlm":
+        "patch_embeds" (B, n_patches, D), for the encdec family the
+        "frames" (B, enc_seq, D)."""
+        if self.cfg.family == "encdec":
+            logits, aux = params(batch["tokens"], batch["frames"])
+        elif self.cfg.family == "vlm":
             logits, aux = params(batch["tokens"],
                                  positions=batch.get("positions"),
                                  patch_embeds=batch.get("patch_embeds"))
@@ -92,16 +98,24 @@ class Model:
         return lm_loss(logits, batch["labels"], aux,
                        ce_impl=self.cfg.ce_impl)
 
+    @torch.no_grad()
     def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor], *,
                 context: int = 0):
         """(last-position logits, caches); the vlm family takes the
-        batch's optional "patch_embeds", as the reference does."""
+        batch's optional "patch_embeds" and the encdec family its
+        "frames", as the reference does.  Serving wants no gradient, so
+        prefill and decode record none (and every remat policy, "dots"
+        too, runs the plain function)."""
         context = context or batch["tokens"].shape[1]
+        if self.cfg.family == "encdec":
+            return params.prefill(batch["tokens"], batch["frames"],
+                                  context=context)
         if self.cfg.family == "vlm":
             return params.prefill(batch["tokens"], context=context,
                                   patch_embeds=batch.get("patch_embeds"))
         return params.prefill(batch["tokens"], context=context)
 
+    @torch.no_grad()
     def decode(self, params: nn.Module, tokens: torch.Tensor, caches,
                index: int):
         return params.decode_step(tokens, caches, index)
@@ -112,8 +126,15 @@ class Model:
     def cache_batch_axes(self):
         """The batch axis of every cache leaf (for slot splicing)."""
         kv1 = KVCache(k=1, v=1, pos=1)
-        if self.cfg.family == "hybrid":
+        family = self.cfg.family
+        if family == "hybrid":
             return hybrid.HybridCaches(ssm=SSMState(h=2, conv=2), kv=kv1)
+        if family == "encdec":
+            return encdec.EncDecCaches(kv=kv1, enc_k=1, enc_v=1)
+        if family == "ssm":
+            return xlstm_model.XLSTMCaches(
+                m=MLSTMState(C=1, n=1, m=1),
+                s=SLSTMState(c=1, n=1, m=1, h=1))
         return tfm.DecoderCaches(kv=kv1)
 
     def splice_cache(self, caches, cache_one, slot: int):
@@ -126,9 +147,4 @@ class Model:
 
 
 def make_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ported: {', '.join(PORTED_FAMILIES)}); "
-            f"ROADMAP.md queue 1 lists it")
     return Model(cfg.validate(), resolve_device(device))

@@ -309,6 +309,13 @@ def test_flash_kernel_matches_plain(gpu, S, T, H, KV, hd, dtype, causal,
     (1, 200, 200, 4, 4, 36, True, None),        # hd % 8 != 0: FMA kernel
     (1, 600, 600, 28, 4, 128, True, 256),       # qwen2-vl GQA 28/4, window
     (1, 500, 500, 15, 5, 64, True, None),       # smollm GQA 15/5
+    # whisper-small: the encoder, cross-attention of a 224- and a 4-token
+    # prompt against 1,500 frames (T not a multiple of the key tile, the
+    # query tile nearly all padding), the decoder's causal self-attention
+    (1, 1500, 1500, 12, 12, 64, False, None),
+    (1, 224, 1500, 12, 12, 64, False, None),
+    (1, 4, 1500, 12, 12, 64, False, None),
+    (1, 224, 224, 12, 12, 64, True, None),
 ])
 def test_flash_bf16_route_within_two_bf16_steps(gpu, B, S, T, H, KV, hd,
                                                 causal, window):
@@ -527,6 +534,45 @@ def test_smoke_transformer_on_gpu_matches_cpu(gpu, arch):
                         f"{float(top[cfg.top_k - 1] - top[cfg.top_k]):.3g}")
     assert len(seen.get("card", [])) == (4 * cfg.n_layers
                                          if cfg.family == "moe" else 0)
+    for g, c in outs:
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "xlstm-350m"])
+def test_smoke_encdec_and_xlstm_on_gpu_match_cpu(gpu, arch):
+    """The whisper and xLSTM smoke configs: a 20-token prefill (whisper's
+    with seeded frames) and three teacher-forced decode steps, card
+    against host with the same weights; f32 sums in another order: 1e-4.
+    Whisper's prefill launches the flash kernel once per encoder layer and
+    twice per decoder layer; the xLSTM's launches it not at all."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.models import make_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    mg, mc = make_model(cfg, device=gpu), make_model(cfg, device="cpu")
+    pg = mg.init(0)
+    pc = mc.init(0)
+    pc.load_state_dict({k: v.cpu() for k, v in pg.state_dict().items()})
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, 20)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    before = attention.launches
+    lg, cg = mg.prefill(pg, {k: v.to(gpu) for k, v in batch.items()},
+                        context=64)
+    assert attention.launches - before == (
+        cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+        else 0)
+    lc, cc = mc.prefill(pc, batch, context=64)
+    outs = [(lg, lc)]
+    for t in range(3):
+        nxt = lc[:, -1].argmax(-1)[:, None]
+        lg, cg = mg.decode(pg, nxt.to(gpu), cg, 20 + t)
+        lc, cc = mc.decode(pc, nxt, cc, 20 + t)
+        outs.append((lg, lc))
     for g, c in outs:
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
                                    atol=1e-4)

@@ -34,7 +34,8 @@ COPIES = ["core/isa.py", "core/program.py", "core/physical.py",
           "configs/llama3_2_1b.py", "configs/granite_moe_1b.py",
           "configs/qwen2_vl_7b.py", "configs/olmo_1b.py",
           "configs/smollm_360m.py", "configs/starcoder2_15b.py",
-          "configs/mixtral_8x22b.py",
+          "configs/mixtral_8x22b.py", "configs/whisper_small.py",
+          "configs/xlstm_350m.py",
           "runtime/__init__.py", "runtime/elastic.py", "runtime/faults.py",
           "runtime/heartbeat.py", "runtime/straggler.py",
           "service/monitor.py", "service/client.py", "service/__main__.py",

@@ -22,10 +22,12 @@ torch.set_num_threads(1)
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
 from repro.models import layers as RL, make_model as ref_make  # noqa: E402
 from repro.models import ssm as RS  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (get_config, get_smoke_config,  # noqa: E402
+                                 list_archs)
 from repro_torch.models import layers as L, make_model  # noqa: E402
 from repro_torch.models.ssm import SSMState, dims  # noqa: E402
 
@@ -165,12 +167,18 @@ def test_configs_match_reference():
             full.shared_attn_every) == (54, 2560, 32, 80, 6)
 
 
-def test_unported_architectures_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-small")
-    other = get_smoke_config(ARCH).replace(family="encdec", n_enc_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(other, device="cpu")
+@pytest.mark.parametrize("arch", ref_list_archs())
+def test_registry_equals_the_reference(arch):
+    """Every architecture of the reference is registered, its full and
+    smoke configs equal field for field, and both build a model (no
+    weights are drawn)."""
+    assert list_archs() == ref_list_archs()
+    for mine, ref in ((get_config(arch), ref_get_config(arch)),
+                      (get_smoke_config(arch), ref_smoke(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert make_model(mine, device="cpu").cfg == mine
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config(arch + "-x")
 
 
 def test_init_matches_reference_shapes_and_distributions(f32):

@@ -263,7 +263,8 @@ def test_full_remat_forward_keeps_gradients():
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m",
+                                  "whisper-small", "xlstm-350m"])
 def test_training_the_new_families_is_refused(arch, tmp_path):
     """Training waits for a later slice: the trainer refuses these
     families with a message naming ROADMAP.md."""

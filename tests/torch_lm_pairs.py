@@ -79,7 +79,11 @@ def close(got, want, tol):
 
 
 def cache_leaves(c):
-    return [c.kv.k, c.kv.v, c.kv.pos]
+    """The leaves of a port cache (nested named tuples), in the order
+    ``jax.tree.leaves`` gives the reference's."""
+    if isinstance(c, tuple):
+        return [leaf for t in c for leaf in cache_leaves(t)]
+    return [c]
 
 
 @contextlib.contextmanager
