@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the CGRA estimator's
 DSE sweep, zamba2-2.7b serving and training, serving the decoder-only
 transformer families (dense, MoE, VLM), the encoder-decoder whisper-small
-and the xLSTM xlstm-350m.
+and the xLSTM xlstm-350m, and training all of them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -154,9 +154,39 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    seeded frames) and xlstm-350m (2 layers) at full width, f32, prompts
    of 200 and 64 tokens, 8 teacher-forced decode steps, at 1e-3; then
    both smoke configs at 1e-4;
-12. one {"kernels": [...]} line with times, bounds and launch counts
-   (flash: this slice's main path, phase 11; SSD: phase 7);
-13. the last line {"ok": true, "device": {...}}.
+13. training every non-hybrid family, this slice's main path:
+   launch.train.main on llama3.2-1b at full width and depth (16 layers,
+   d_model 2048, 32 heads of 64, kv 8, vocab 128,256, tied; seeded
+   weights, bf16 activations, f32 parameters and moments, remat "dots"),
+   4 AdamW steps of 2 x 4096 tokens: finite loss, nll and grad_norm,
+   every parameter changed, exact launches a step (flash 16 x 2: the
+   forward and the "dots" recomputation; its backward 16 x 2 kernels;
+   SSD 0), ms a step (median of steps 2-4), tokens/s, peak memory;
+   phase 9a holds the families' bf16 backward shapes on the tensor
+   cores (llama's (2, 4096, 32, 64) kv 8 timed beside SDPA's backward
+   and its bound, with its training forward); phase 1 prints ptxas's
+   report for both backward kernels at hd 64, 80 and 128;
+13b. 2 steps each, the same checks and numbers: whisper-small (2 x 448
+   tokens, 1,500 seeded frames each; 36 x 2 flash and 36 x 2 backward
+   launches a step), granite-moe-1b-a400m (1 x 2,048), olmo-1b and
+   smollm-360m (2 x 2,048) at full width and depth; qwen2-vl-7b (seeded
+   patch embeds, M-RoPE positions), starcoder2-15b and mixtral-8x22b at
+   full width cut to the depth whose 16 bytes a parameter fit
+   TRAIN_STATE_GIB (1 x 2,048; the cut is printed); xlstm-350m cut to 2
+   layers on 1 x 128 tokens (its per-token loop is host-bound);
+13c. card against host, as phase 9c: llama3.2-1b, granite-moe-1b-a400m,
+   qwen2-vl-7b, whisper-small (2 + 2 layers) and xlstm-350m at full
+   width cut to 2 layers, f32, TF32 off, the same weights; 2 AdamW steps
+   of 64 tokens, the MoE's chosen experts compared first (every router
+   call, forward and recomputation), then loss, grad_norm and every
+   parameter at 1e-3; "dots" against "none" on llama's cut on the card
+   at 1e-5; 2 steps of each of the nine smoke configs at 1e-4;
+13d. llama3.2-1b's smoke trainer killed at step 4 (exit 42) and resumed
+   on the card: steps 5-8 equal an uninterrupted run at 1e-5;
+14. one {"kernels": [...]} line with times, bounds and launch counts
+   (flash and its backward: this slice's main path, phase 13, at its
+   shape; SSD: phase 7; SSD backward: phase 9b);
+15. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -345,9 +375,12 @@ def build_report(_build) -> None:
     print(f"[build] ssd_intra_chunk ssd_kernel<2, TMA>: {ssd};"
           f" dynamic shared memory {shared_memory(64, 64)} bytes a block")
     bwd_log = _build.build_log("flash_attention_bwd")
-    for kernel in ("flash_bwd_dq_hopperILi80", "flash_bwd_dkdv_hopperILi80"):
-        print(f"[build] flash_attention_bwd {kernel}: "
-              f"{ptxas_report(bwd_log, kernel)}")
+    # hd 80 (zamba2), 64 (llama, whisper) and 128 (qwen2-vl, olmo,
+    # starcoder2, mixtral): the widths the families train at
+    for hd in (80, 64, 128):
+        for kernel in ("flash_bwd_dq_hopper", "flash_bwd_dkdv_hopper"):
+            print(f"[build] flash_attention_bwd {kernel}<{hd}>: "
+                  f"{ptxas_report(bwd_log, f'{kernel}ILi{hd}E')}")
     print(f"[build] ssd_intra_chunk_bwd ssd_bwd_kernel<2, TMA>: "
           f"{ptxas_report(_build.build_log('ssd_intra_chunk_bwd'), 'ssd_bwd_kernelILi2ELb1E')}")
     for name in ("flash_attention", "flash_attention_bwd"):
@@ -1556,20 +1589,45 @@ def serve_phase(dev, arch=ARCH, *, slots=SERVE_SLOTS, context=SERVE_CONTEXT,
     return stats
 
 
-def _routing_hooks(params, side: str, log: dict) -> None:
-    """Records, at every MoE call of ``params``, (layer, its float32
-    routing probabilities, the experts each token chose) under
-    ``log[side]``, in call order."""
-    from repro_torch.models import moe
+class _Routes:
+    """Records the experts every MoE router call chose, under the name of
+    the side running (``side``: "card" or "host"), forward and
+    recomputation alike, while open."""
 
-    for i, layer in enumerate(getattr(params, "layers", ())):
-        if isinstance(getattr(layer, "mlp", None), moe.MoE):
-            def hook(mod, args, out, i=i):
-                probs = moe.router_probs(mod, args[0])
-                log.setdefault(side, []).append(
-                    (i, probs.cpu(), moe.topk_experts(
-                        probs, mod.cfg.top_k).cpu()))
-            layer.mlp.register_forward_hook(hook)
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.log, self._moe, self.side = {}, moe, None
+        self._probs = moe.router_probs
+
+        def recorded(p, x):
+            probs = self._probs(p, x)
+            self.log.setdefault(self.side, []).append(
+                (probs.detach().cpu(),
+                 moe.topk_experts(probs, p.cfg.top_k).cpu()))
+            return probs
+        moe.router_probs = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.router_probs = self._probs
+
+    def check_equal(self, what: str) -> int:
+        card, host = self.log.get("card", []), self.log.get("host", [])
+        check(len(card) == len(host), f"{what}: {len(card)} MoE router "
+              f"calls on the card, {len(host)} on the host")
+        import torch
+        for call, ((_, c_card), (probs, c_host)) in enumerate(zip(card,
+                                                                  host)):
+            if not torch.equal(c_card, c_host):
+                b, tok = (c_card != c_host).any(-1).nonzero()[0].tolist()
+                top = probs[b, tok].sort(descending=True).values
+                k = c_host.shape[-1]
+                fail(f"{what}: MoE routing differs at router call {call}, "
+                     f"batch row {b}, token {tok}: card "
+                     f"{c_card[b, tok].tolist()}, host "
+                     f"{c_host[b, tok].tolist()}; gap between the k-th and "
+                     f"(k+1)-th probability {float(top[k - 1] - top[k]):.3g}")
+        return len(card)
 
 
 def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
@@ -1590,9 +1648,7 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
     m_dev, m_cpu = make_model(cfg, device=dev), make_model(cfg, device="cpu")
     p_dev = m_dev.init(torch.Generator(device=dev).manual_seed(seed))
     p_cpu = copy.deepcopy(p_dev).to("cpu")
-    routes = {}
-    _routing_hooks(p_dev, "card", routes)
-    _routing_hooks(p_cpu, "host", routes)
+    routes = _Routes()
     rng = np.random.default_rng(seed)
     # a vlm request's image covers at most half its prompt: qwen2-vl's
     # dynamic resolution gives fewer patches than n_patches to a smaller
@@ -1609,7 +1665,8 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
     extras = [extra(p) for p in prompts]
     index = max(len(p) for p in prompts)     # the Server's shared index
 
-    def run(model, params, forced):
+    def run(model, params, forced, side):
+        routes.side = side
         caches = model.init_caches(len(prompts), context)
         out = []
         for slot, (prompt, extra) in enumerate(zip(prompts, extras)):
@@ -1629,21 +1686,11 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
         return out, feed
 
     t = time.perf_counter()
-    want, feed = run(m_cpu, p_cpu, None)
-    t_cpu = time.perf_counter() - t
-    got, _ = run(m_dev, p_dev, feed)
-    calls = list(zip(routes.get("card", []), routes.get("host", [])))
-    check(len(routes.get("card", [])) == len(routes.get("host", [])),
-          f"{what}: the card and the host made different MoE calls")
-    for (layer, _, c_card), (_, probs, c_host) in calls:
-        if not torch.equal(c_card, c_host):
-            b, tok = (c_card != c_host).any(-1).nonzero()[0].tolist()
-            top = probs[b, tok].sort(descending=True).values
-            k = c_host.shape[-1]
-            fail(f"{what}: MoE routing differs at layer {layer}, batch row "
-                 f"{b}, token {tok}: card {c_card[b, tok].tolist()}, host "
-                 f"{c_host[b, tok].tolist()}; gap between the k-th and "
-                 f"(k+1)-th probability {float(top[k - 1] - top[k]):.3g}")
+    with routes:
+        want, feed = run(m_cpu, p_cpu, None, "host")
+        t_cpu = time.perf_counter() - t
+        got, _ = run(m_dev, p_dev, feed, "card")
+    calls = routes.check_equal(what)
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     for i, (g, w) in enumerate(zip(got, want)):
         check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
@@ -1651,8 +1698,7 @@ def card_vs_host(dev, cfg, prompts, *, context, steps, tol, what,
         check(bool(torch.allclose(g, w, rtol=tol, atol=tol)),
               f"{what} step {i}: card and host logits differ by "
               f"{errs[i]:.3g} (rtol = atol = {tol:g})")
-    routed = (f"; MoE experts equal in all {len(calls)} calls"
-              if calls else "")
+    routed = f"; MoE experts equal in all {calls} calls" if calls else ""
     print(f"[{what}] {cfg.name}, {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, f32: {len(prompts)} prefills "
           f"({', '.join(str(len(p)) for p in prompts)} tokens) + {steps} "
@@ -1797,13 +1843,24 @@ def last_families_card_vs_host_phase(dev) -> None:
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4     # the main training path
 
 
-def flash_bwd_bound(B, S, H, hd, dtype_bytes, ops_per_s):
-    """(least ms, what sets it) of the causal flash backward: q, k, v, dO
-    and lse read once, dQ, dK, dV written once; the five products a pair
-    needs (S recomputed, dP, dV, dQ, dK), 2 hd operations each, over the
-    causal band."""
-    pairs = S * (S + 1) // 2
-    n_bytes = 7 * B * S * H * hd * dtype_bytes + 4 * B * H * S
+def live_pairs(S, T, causal, window) -> int:
+    """The (query, key) pairs in band: every one without a mask, the
+    causal band (as wide as the window, if any) with one."""
+    if not causal:
+        return S * T
+    return sum(min(i + 1, window or T) for i in range(S))
+
+
+def flash_bwd_bound(B, S, H, hd, dtype_bytes, ops_per_s, T=None, KV=None,
+                    causal=True, window=None):
+    """(least ms, what sets it) of the flash backward: q, k, v, dO and lse
+    read once, dQ, dK, dV written once; the five products a pair needs
+    (S recomputed, dP, dV, dQ, dK), 2 hd operations each, over the live
+    pairs (the causal band by default)."""
+    T, KV = T or S, KV or H
+    n_bytes = (3 * B * S * H + 4 * B * T * KV) * hd * dtype_bytes \
+        + 4 * B * H * S
+    pairs = live_pairs(S, T, causal, window)
     return bound(n_bytes, 5 * 2 * hd * B * H * pairs, ops_per_s)
 
 
@@ -1818,6 +1875,110 @@ def ssd_bwd_bound(G, L, H, P, N):
     return bound(n_bytes, n_ops, F32_OPS_PER_S)
 
 
+# the families' bf16 backward shapes (phase 9a), every one on the
+# tensor cores: (name, B, S, T, H, KV, hd, causal, window)
+LLAMA_BWD = "llama3.2-1b training (2, 4096, 32, 64) kv 8"
+FAMILY_BWD = [
+    (LLAMA_BWD, 2, 4096, 4096, 32, 8, 64, True, None),
+    ("qwen2-vl (1, 2048, 28, 128) kv 4", 1, 2048, 2048, 28, 4, 128,
+     True, None),
+    ("hd 128 (1, 2048, 16, 128) kv 16", 1, 2048, 2048, 16, 16, 128,
+     True, None),
+    ("hd 128 window 512 (1, 2048, 32, 128) kv 4", 1, 2048, 2048, 32, 4, 128,
+     True, 512),
+    ("whisper encoder (2, 1500, 12, 64)", 2, 1500, 1500, 12, 12, 64,
+     False, None),
+    ("whisper cross (2, 448, 12, 64) against 1,500", 2, 448, 1500, 12, 12,
+     64, False, None),
+    ("whisper decoder (2, 448, 12, 64) causal", 2, 448, 448, 12, 12, 64,
+     True, None),
+]
+FAMILY_NAMES = {c[0] for c in FAMILY_BWD}
+
+
+def family_bwd_time(name, q, k, v, dout, lse, out32, causal, window,
+                    errs) -> dict:
+    """A family's backward shape timed beside its plain backward,
+    scaled_dot_product_attention's fused backward (on the kv heads
+    expanded, as phase 5 times its forward) and the bound."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         expand_kv)
+
+    B, S, H, hd = q.shape
+    ms = cuda_ms(lambda: fo._launch_bwd(q, k, v, dout, lse, causal, window,
+                                        out32=out32), reps=5)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(
+        q, k, v, dout, causal=causal, window=window), reps=2)
+    T, KV = k.shape[1], k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (expand_kv(t, H).contiguous().requires_grad_(True)
+              for t in (k, v))
+    do_t = dout.transpose(1, 2).contiguous()
+    # a window is a mask to SDPA (the memory-efficient backend takes it)
+    mask = None
+    if window is not None:
+        i, j = torch.arange(S, device=q.device), torch.arange(T,
+                                                              device=q.device)
+        mask = (j[None] <= i[:, None]) & (i[:, None] - j[None] < window)
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def lib(a, b, c):
+        with sdpa_kernel(fused):
+            if mask is None:
+                return sdpa(a, b, c, is_causal=causal)
+            return sdpa(a, b, c, attn_mask=mask)
+    out = lib(qt, kt, vt)
+    torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do_t, retain_graph=True), reps=5)
+    b_ms, b_by = flash_bwd_bound(B, S, H, hd, 2, BF16_OPS_PER_S, T, KV,
+                                 causal, window)
+    print(f"[train-kernels] flash backward {name}: kernels {ms:.4f} ms (2 "
+          f"launches), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"backward {lib_ms:.4f} ms (kv heads expanded), bound {b_ms:.4f} "
+          f"ms ({b_by}), {ms / b_ms:.1f}x the bound")
+    # the forward as training launches it (lse and the f32 output kept),
+    # held to its plain version and timed at the same shape
+    got = fo._launch(q, k, v, causal, window, lse=True)[0]
+    want = fo.attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    f_err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                              atol=2e-2)) and
+          bool(torch.allclose(got.float(), want.float(), rtol=2.0 ** -6,
+                              atol=1e-5)),
+          f"flash forward {name}: max abs err {f_err:.3g}, over 2e-2 or "
+          f"two bf16 steps of an element")
+    f_ms = cuda_ms(lambda: fo._launch(q, k, v, causal, window, lse=True),
+                   reps=10)
+    f_plain_ms = cuda_ms(lambda: fo.attention_plain(
+        q, k, v, causal=causal, window=window), reps=2)
+    qd, kd, vd = qt.detach(), kt.detach(), vt.detach()
+    lib(qd, kd, vd)
+    f_lib_ms = cuda_ms(lambda: lib(qd, kd, vd), reps=10)
+    f_b_ms, f_b_by = bound(2 * (2 * B * S * H * hd + 2 * k.numel()),
+                           4 * B * H * hd * live_pairs(S, T, causal, window),
+                           BF16_OPS_PER_S)
+    print(f"[train-kernels] flash forward {name}, as training launches it: "
+          f"max abs err {f_err:.3g} within 2e-2 and two bf16 steps; kernel "
+          f"{f_ms:.4f} ms, plain {f_plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {f_lib_ms:.4f} ms (kv heads "
+          f"expanded), bound {f_b_ms:.4f} ms ({f_b_by})")
+    del out, qt, kt, vt, qd, kd, vd, got, want
+    return {"config": name, "shape": [B, S, H, hd], "keys": T,
+            "kv_heads": KV, "causal": causal, "window": window, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": max(errs),
+            "forward": {"ms": f_ms, "plain_ms": f_plain_ms,
+                        "library_ms": f_lib_ms, "bound_ms": f_b_ms,
+                        "bound_by": f_b_by, "max_abs_err": f_err}}
+
+
 def train_kernels_phase(dev) -> list:
     """Phase 9a: both backward kernels against their plain backward on
     the card, gradient for gradient, timed beside their bounds (and the
@@ -1826,7 +1987,6 @@ def train_kernels_phase(dev) -> list:
     checked (bf16 with hd % 8 == 0 on the tensor cores, f32 on the FMA
     kernels)."""
     import torch
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
     from torch.nn.functional import softplus
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -1840,24 +2000,24 @@ def train_kernels_phase(dev) -> list:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    cases = [  # (name, B, S, H, KV, hd, dtype, causal, window)
-        ("main bf16 causal", TRAIN_B, TRAIN_S, 32, 32, 80, torch.bfloat16,
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (name, B, S, T, H, KV, hd, dtype, causal, window)
+        ("main bf16 causal", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 80, bf16,
          True, None),
-        ("bf16 ragged S=1000", 1, 1000, 32, 32, 80, torch.bfloat16, True,
-         None),
-        ("bf16 GQA 32/8", 1, 2048, 32, 8, 80, torch.bfloat16, True, None),
-        ("f32 hd16", 1, 2048, 32, 32, 16, torch.float32, True, None),
-        ("f32 hd128", 1, 2048, 32, 32, 128, torch.float32, True, None),
-        ("ragged S=1000", 1, 1000, 32, 32, 80, torch.float32, True, None),
-        ("causal=False", 1, 2048, 32, 32, 80, torch.float32, False, None),
-        ("window=512", 1, 2048, 32, 32, 80, torch.float32, True, 512),
-        ("GQA 32/8", 1, 2048, 32, 8, 80, torch.float32, True, None),
-    ]
-    flash_err = 0.0
-    for name, B, S, H, KV, hd, dtype, causal, window in cases:
+        ("bf16 ragged S=1000", 1, 1000, 1000, 32, 32, 80, bf16, True, None),
+        ("bf16 GQA 32/8", 1, 2048, 2048, 32, 8, 80, bf16, True, None),
+        ("f32 hd16", 1, 2048, 2048, 32, 32, 16, f32, True, None),
+        ("f32 hd128", 1, 2048, 2048, 32, 32, 128, f32, True, None),
+        ("ragged S=1000", 1, 1000, 1000, 32, 32, 80, f32, True, None),
+        ("causal=False", 1, 2048, 2048, 32, 32, 80, f32, False, None),
+        ("window=512", 1, 2048, 2048, 32, 32, 80, f32, True, 512),
+        ("GQA 32/8", 1, 2048, 2048, 32, 8, 80, f32, True, None),
+    ] + [c[:7] + (bf16,) + c[7:] for c in FAMILY_BWD]
+    flash_err, family = 0.0, []
+    for name, B, S, T, H, KV, hd, dtype, causal, window in cases:
         q, dout = randn(B, S, H, hd, dtype=dtype), randn(B, S, H, hd,
                                                           dtype=dtype)
-        k, v = randn(B, S, KV, hd, dtype=dtype), randn(B, S, KV, hd,
+        k, v = randn(B, T, KV, hd, dtype=dtype), randn(B, T, KV, hd,
                                                        dtype=dtype)
         _, lse, out32 = fo._launch(q, k, v, causal, window, lse=True)
         got = fo.attention_bwd(q, k, v, dout, lse, causal=causal,
@@ -1882,15 +2042,18 @@ def train_kernels_phase(dev) -> list:
                                           rtol=2.0 ** -6, atol=1e-5)),
                       f"flash backward {name} {gname}: an element is off "
                       f"by more than two bf16 steps of itself")
-        print(f"[train-kernels] flash backward {name} (B={B}, S={S}, H={H}, "
-              f"KV={KV}, hd={hd}, {str(dtype)[6:]}, causal={causal}, "
+        print(f"[train-kernels] flash backward {name} (B={B}, S={S}, T={T}, "
+              f"H={H}, KV={KV}, hd={hd}, {str(dtype)[6:]}, causal={causal}, "
               f"window={window}), {route} route: max abs err dq/dk/dv "
               f"{[float(f'{e:.3g}') for e in errs]} within {tol}"
               + (" and two bf16 steps" if dtype == torch.bfloat16 else ""))
         flash_err = max(flash_err, *errs)
+        if name in FAMILY_NAMES or name.startswith("main"):
+            timed = family_bwd_time(name, q, k, v, dout, lse, out32, causal,
+                                    window, errs)
+            if name in FAMILY_NAMES:
+                family.append(timed)
         if name.startswith("main"):
-            ms = cuda_ms(lambda: fo._launch_bwd(q, k, v, dout, lse, causal,
-                                                window, out32=out32), reps=5)
             # the FMA kernels (the f32 route, and before the tensor-core
             # route the bf16 one) on f32 copies of the same inputs, in
             # the same call
@@ -1902,32 +2065,10 @@ def train_kernels_phase(dev) -> list:
             fma_ms = cuda_ms(lambda: fo._launch_bwd(qf, kf, vf, df, lse_f,
                                                     causal, window), reps=2)
             del qf, kf, vf, df, lse_f
-            plain_ms = cuda_ms(lambda: attention_bwd_ref(
-                q, k, v, dout, causal=causal, window=window), reps=2)
-            # the yardstick: one fused backward of PyTorch's (not its
-            # materialising math backend), on contiguous (B, H, S, hd)
-            from torch.nn.attention import SDPBackend, sdpa_kernel
-            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                          for t in (q, k, v))
-            do_t = dout.transpose(1, 2).contiguous()
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                              SDPBackend.EFFICIENT_ATTENTION,
-                              SDPBackend.CUDNN_ATTENTION]):
-                out = sdpa(qt, kt, vt, is_causal=True)
-            torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, (qt, kt, vt), do_t, retain_graph=True), reps=5)
-            b_ms, b_by = flash_bwd_bound(B, S, H, hd, 2, BF16_OPS_PER_S)
-            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=b_ms, bound_by=b_by, shape=[B, S, H, hd],
-                        route=route, fma_f32_ms=fma_ms)
-            print(f"[train-kernels] flash backward main shape: {route} "
-                  f"kernels {ms:.4f} ms (2 launches), plain {plain_ms:.4f} "
-                  f"ms, scaled_dot_product_attention backward {lib_ms:.4f} "
-                  f"ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.1f}x the "
-                  f"bound; the FMA kernels on f32 copies of the same "
-                  f"inputs {fma_ms:.4f} ms")
-            del out, qt, kt, vt
+            main = dict(timed, route=route, fma_f32_ms=fma_ms)
+            print(f"[train-kernels] flash backward main shape, {route} route;"
+                  f" the FMA kernels on f32 copies of the same inputs "
+                  f"{fma_ms:.4f} ms")
         del q, k, v, dout, lse, got, want
         torch.cuda.empty_cache()
 
@@ -1980,7 +2121,7 @@ def train_kernels_phase(dev) -> list:
          "bound_by": main["bound_by"], "library_ms": main["library_ms"],
          "shape": main["shape"], "dtype": "bfloat16", "causal": True,
          "kernels_a_call": 2, "route_taken": main["route"],
-         "fma_f32_ms": main["fma_f32_ms"]},
+         "fma_f32_ms": main["fma_f32_ms"], "family_shapes": family},
         {"name": "ssd_intra_chunk_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/mamba2_scan/csrc/"
                    "ssd_intra_chunk_bwd.cu",
@@ -2008,162 +2149,36 @@ def _zero_launches():
     so.ssd_intra_chunk.launches = so.ssd_intra_chunk_bwd.launches = 0
 
 
-def train_phase(dev, work: Path) -> dict:
-    """Phase 9b: the training main path, ``launch.train.main`` on
-    zamba2-2.7b at full width and depth, seeded weights, bf16
-    activations, f32 parameters and moments, remat "full", TRAIN_STEPS
-    AdamW steps of TRAIN_B x TRAIN_S tokens; counted launches a step."""
-    import math
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train
-    from repro_torch.models import make_model
-
-    cfg = get_config(ARCH)
-    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
-          f"{ARCH}: remat {cfg.remat}, dtype {cfg.dtype}")
-    argv = ["--arch", ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
-            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--ckpt-every",
-            "0", "--log-every", "1", "--ckpt-dir", str(work / "train_full")]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    t0 = time.perf_counter()
-    history, state = train.main(argv, return_state=True)
-    wall = time.perf_counter() - t0
-    launches = _train_launches()
-    peak = torch.cuda.max_memory_allocated()
-    G = cfg.n_layers // cfg.shared_attn_every
-    want = {"flash_attention": G * 2, "flash_attention_bwd": G * 2,
-            "ssd_intra_chunk": cfg.n_layers * 2,
-            "ssd_intra_chunk_bwd": cfg.n_layers}
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    print(f"[train] launches in {TRAIN_STEPS} steps {launches}; a step "
-          f"{per_step} (expected {want}: {G} shared-block applications "
-          f"and {cfg.n_layers} Mamba2 layers, each forward run twice under "
-          f"remat, two flash kernels and one SSD kernel a backward call)")
-    check(per_step == want, f"training launches a step {per_step}, "
-          f"expected {want}")
-    check(len(history) == TRAIN_STEPS, f"{len(history)} steps recorded")
-    for h in history:
-        check(all(math.isfinite(h[k]) for k in ("loss", "nll", "grad_norm")),
-              f"step {h['step']}: non-finite loss, nll or grad_norm {h}")
-    n_params = sum(p.numel() for p in state.params.parameters())
-    fresh = make_model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(0))
-    unchanged = [n for (n, a), b in zip(state.params.named_parameters(),
-                                        fresh.parameters())
-                 if torch.equal(a.detach(), b)]
-    check(not unchanged, f"parameters unchanged by training: {unchanged[:4]}")
-    del fresh, state
-    torch.cuda.empty_cache()
-    steady = sorted(h["time_s"] for h in history[1:])
-    step_s = steady[len(steady) // 2]
-    tokens = TRAIN_B * TRAIN_S
-    for h in history:
-        print(f"[train] step {h['step']}: loss {h['loss']:.6f} nll "
-              f"{h['nll']:.6f} grad_norm {h['grad_norm']:.6f} lr "
-              f"{h['lr']:.3g} {h['time_s'] * 1e3:.1f} ms "
-              f"({tokens / h['time_s']:.1f} tokens/s)")
-    check(peak < 75 * 2 ** 30, f"peak memory {peak / 2**30:.2f} GiB over "
-          f"75 GiB at batch {TRAIN_B}")
-    print(f"[train] {ARCH} full width and depth ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {n_params} parameters), batch {TRAIN_B} "
-          f"x {TRAIN_S} tokens, remat {cfg.remat}, bf16 activations, f32 "
-          f"parameters and moments: {TRAIN_STEPS} steps in {wall:.1f} s, "
-          f"every parameter changed; median step (2-{TRAIN_STEPS}) "
-          f"{step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s; "
-          f"max_memory_allocated {peak / 2**30:.3f} GiB")
-    return {"launches": launches, "step_ms": step_s * 1e3,
-            "tokens_s": tokens / step_s, "peak_gib": peak / 2 ** 30}
-
-
 def train_depth6_phase(dev) -> None:
     """Phase 9c: two training steps on the card against the same on the
     host: full width cut to 6 layers, f32, the same weights, batch 1 x
     256 tokens; loss, grad_norm and every parameter at 1e-3."""
-    import numpy as np
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import make_model
-    from repro_torch.train import AdamWConfig, make_train_step
-    from repro_torch.train.optim import adamw_init
-    from repro_torch.train.train_step import TrainState, param_tree
 
     cfg = get_config(ARCH).replace(n_layers=6, dtype="float32")
-    opt = AdamWConfig(lr=3e-4, warmup_steps=0, schedule="constant")
-    runs = []
-    p_dev = make_model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(3))
-    for model, params in ((make_model(cfg, device=dev), p_dev),
-                          (make_model(cfg, device="cpu"),
-                           copy.deepcopy(p_dev).to("cpu"))):
-        params.requires_grad_(True)
-        runs.append([model, TrainState(params, adamw_init(param_tree(params)),
-                                       None)])
-    start = {n: t.detach().cpu().clone()
-             for n, t in runs[1][1].params.named_parameters()}
-    rng = np.random.default_rng(3)
-    t_cpu = 0.0
-    for step in range(2):
-        toks = rng.integers(0, cfg.vocab, (1, 257))
-        mets = []
-        for run in runs:
-            model, st = run
-            batch = {"tokens": torch.as_tensor(toks[:, :-1],
-                                               device=model.device),
-                     "labels": torch.as_tensor(toks[:, 1:],
-                                               device=model.device)}
-            t = time.perf_counter()
-            run[1], met = make_train_step(model, opt)(st, batch)
-            if model.device.type == "cpu":
-                t_cpu += time.perf_counter() - t
-            mets.append({k: float(v) for k, v in met.items()})
-        for k in ("loss", "grad_norm"):
-            check(abs(mets[0][k] - mets[1][k]) <= 1e-3 + 1e-3 * abs(
-                mets[1][k]), f"6-layer training step {step + 1}: {k} card "
-                f"{mets[0][k]:.6f} host {mets[1][k]:.6f} (rtol = atol = "
-                f"1e-3)")
-        print(f"[train-depth6] step {step + 1}: loss card {mets[0]['loss']:.6f}"
-              f" host {mets[1]['loss']:.6f}, grad_norm card "
-              f"{mets[0]['grad_norm']:.6f} host {mets[1]['grad_norm']:.6f}")
-    worst, num, den = 0.0, 0.0, 0.0
-    for (n, a), b in zip(runs[0][1].params.named_parameters(),
-                         runs[1][1].params.parameters()):
-        a, b = a.detach().cpu(), b.detach()
-        worst = max(worst, float((a - b).abs().max()))
-        check(bool(torch.allclose(a, b, rtol=1e-3, atol=1e-3)),
-              f"6-layer training: parameter {n} card and host differ by "
-              f"{float((a - b).abs().max()):.3g} (rtol = atol = 1e-3)")
-        num += float(((a - start[n]) - (b - start[n])).norm() ** 2)
-        den += float((b - start[n]).norm() ** 2)
-    print(f"[train-depth6] {ARCH} at full width, 6 layers, f32, 2 AdamW "
-          f"steps of 256 tokens: every parameter within rtol = atol = 1e-3 "
-          f"of the host's (max abs diff {worst:.3g}); |update card - "
-          f"update host| / |update host| = {(num / den) ** 0.5:.3g}; host "
-          f"steps {t_cpu:.1f} s")
-    del runs, p_dev
-    torch.cuda.empty_cache()
+    train_card_vs_host(dev, cfg, seq=256, tol=1e-3, what="train-depth6",
+                       seed=3)
 
 
-def train_restart_phase(dev, work: Path) -> None:
-    """Phase 9d: the trainer killed at step 4 (exit 42) and resumed from
-    its checkpoint on the card replays steps 5-8 of an uninterrupted run
-    at 1e-5 (the smoke configuration)."""
+def train_restart_phase(dev, work: Path, arch: str = ARCH,
+                        tag: str = "train-restart") -> None:
+    """Phases 9d and 13d: the trainer killed at step 4 (exit 42) and
+    resumed from its checkpoint on the card replays steps 5-8 of an
+    uninterrupted run at 1e-5 (the smoke configuration)."""
     from repro_torch.launch import train
 
-    base = ["--arch", ARCH, "--smoke", "--device", "cuda", "--steps", "8",
+    base = ["--arch", arch, "--smoke", "--device", "cuda", "--steps", "8",
             "--batch", "4", "--seq", "64", "--ckpt-every", "4",
             "--log-every", "100"]
-    whole = train.main(base + ["--ckpt-dir", str(work / "restart_a")])
+    whole = train.main(base + ["--ckpt-dir", str(work / f"{arch}_a")])
     code = None
     try:
-        train.main(base + ["--ckpt-dir", str(work / "restart_b"),
+        train.main(base + ["--ckpt-dir", str(work / f"{arch}_b"),
                            "--simulate-failure", "4"])
     except SystemExit as e:
         code = e.code
     check(code == 42, f"--simulate-failure 4 exited {code}, not 42")
-    resumed = train.main(base + ["--ckpt-dir", str(work / "restart_b")])
+    resumed = train.main(base + ["--ckpt-dir", str(work / f"{arch}_b")])
     check([h["step"] for h in resumed] == [5, 6, 7, 8],
           f"the resumed run ran steps {[h['step'] for h in resumed]}")
     by_step = {h["step"]: h["loss"] for h in whole}
@@ -2172,10 +2187,317 @@ def train_restart_phase(dev, work: Path) -> None:
         check(abs(h["loss"] - want) <= 1e-5 * abs(want),
               f"resumed step {h['step']}: loss {h['loss']!r} against the "
               f"uninterrupted {want!r} (rtol 1e-5)")
-    print(f"[train-restart] smoke {ARCH} on the card: killed after step 4 "
+    print(f"[{tag}] smoke {arch} on the card: killed after step 4 "
           f"(exit 42), resumed from its checkpoint; steps 5-8 losses "
           f"{[h['loss'] for h in resumed]} equal the uninterrupted run's "
           f"{[by_step[s] for s in (5, 6, 7, 8)]} within rtol 1e-5")
+
+
+# training every non-hybrid family (phases 13-13d): llama3.2-1b at full
+# width and depth, this slice's main path; the other configs at full
+# width, cut in depth where their f32 parameters, gradients and two
+# moments (16 bytes a parameter) would not leave room for activations on
+# the card: (config, batch, tokens, steps, cut)
+TRAIN_FAMILY = [
+    ("whisper-small", 2, 448, 2, None),
+    ("granite-moe-1b-a400m", 1, 2048, 2, None),
+    ("olmo-1b", 2, 2048, 2, None),
+    ("smollm-360m", 2, 2048, 2, None),
+    ("qwen2-vl-7b", 1, 2048, 2, "fit"),
+    ("starcoder2-15b", 1, 2048, 2, "fit"),
+    ("mixtral-8x22b", 1, 2048, 2, "fit"),
+    ("xlstm-350m", 1, 128, 2, 2),     # its per-token loop is host-bound
+]
+# GiB of f32 parameters, gradients and moments a cut may hold
+TRAIN_STATE_GIB = 60
+TRAIN_CARD_HOST = ("llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b",
+                   "whisper-small", "xlstm-350m")
+TRAIN_SMOKE = ("llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b",
+               "olmo-1b", "smollm-360m", "starcoder2-15b", "mixtral-8x22b",
+               "whisper-small", "xlstm-350m")
+
+
+def attention_calls(cfg) -> int:
+    """Full-sequence attention calls a forward: a layer's for the
+    decoder-only families, the encoder's and each decoder layer's self-
+    and cross-attention for the encoder-decoder, the shared block's for
+    the hybrid, none for the xLSTM."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def fitting_depth(cfg, gib: float) -> int:
+    """The most layers whose f32 parameters, gradients and two moments
+    fit in ``gib`` GiB (parameters counted on the meta device)."""
+    import torch
+    from repro_torch.models import make_model
+
+    def count(n):
+        p = make_model(cfg.replace(n_layers=n), device="meta").init(
+            torch.Generator())
+        return sum(t.numel() for t in p.parameters())
+    one, two = count(1), count(2)
+    per, base = two - one, 2 * one - two
+    return max(1, min(cfg.n_layers,
+                      int((gib * 2 ** 30 / 16 - base) // per)))
+
+
+def train_family(dev, work: Path, arch: str, *, batch: int, seq: int,
+                 steps: int, n_layers=None, tag: str) -> dict:
+    """Phases 9b, 13 and 13b: ``launch.train.main`` on ``arch`` at full
+    width (depth cut to ``n_layers`` if given), seeded weights, bf16
+    activations, f32 parameters and moments, the config's remat;
+    ``steps`` AdamW steps of ``batch`` x ``seq`` tokens.  Checks finite
+    loss, nll and grad_norm, every parameter changed and the exact
+    launches a step: flash once a full-sequence attention call, twice
+    under remat, and its backward (two kernels) once; the SSD kernel
+    likewise once a Mamba2 layer (the hybrid's), its backward once.
+    Returns the numbers."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import make_model
+
+    full = get_config(arch)
+    cfg = full if n_layers is None else full.replace(n_layers=n_layers)
+    check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
+    argv = ["--arch", arch, "--device", "cuda", "--steps", str(steps),
+            "--batch", str(batch), "--seq", str(seq), "--ckpt-every", "0",
+            "--log-every", "1", "--ckpt-dir", str(work / f"train_{arch}")]
+    get = train.get_config
+    if n_layers is not None:
+        train.get_config = lambda name: get(name).replace(n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        history, state = train.main(argv, return_state=True)
+    finally:
+        train.get_config = get
+    wall = time.perf_counter() - t0
+    launches = _train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    calls = attention_calls(cfg)
+    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    runs = 1 if cfg.remat == "none" else 2
+    want = {"flash_attention": calls * runs,
+            "flash_attention_bwd": calls * 2,
+            "ssd_intra_chunk": mamba * runs, "ssd_intra_chunk_bwd": mamba}
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"[{tag}] {arch}: launches in {steps} steps {launches}; a step "
+          f"{per_step} (expected {want}: {calls} full-sequence attention "
+          f"calls and {mamba} Mamba2 layers, each forward run {runs} "
+          f"times under remat {cfg.remat!r}, two flash backward kernels a "
+          f"call)")
+    check(per_step == want, f"{arch} training launches a step {per_step}, "
+          f"expected {want}")
+    check(len(history) == steps, f"{arch}: {len(history)} steps recorded")
+    for h in history:
+        check(all(math.isfinite(h[k]) for k in ("loss", "nll", "grad_norm")),
+              f"{arch} step {h['step']}: non-finite loss, nll or grad_norm "
+              f"{h}")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    fresh = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    unchanged = [n for (n, a), b in zip(state.params.named_parameters(),
+                                        fresh.parameters())
+                 if torch.equal(a.detach(), b)]
+    check(not unchanged, f"{arch}: parameters unchanged by training: "
+          f"{unchanged[:4]}")
+    del fresh, state
+    torch.cuda.empty_cache()
+    steady = sorted(h["time_s"] for h in history[1:])
+    step_s = steady[len(steady) // 2]
+    tokens = batch * seq
+    for h in history:
+        print(f"[{tag}] {arch} step {h['step']}: loss {h['loss']:.6f} nll "
+              f"{h['nll']:.6f} grad_norm {h['grad_norm']:.6f} lr "
+              f"{h['lr']:.3g} {h['time_s'] * 1e3:.1f} ms "
+              f"({tokens / h['time_s']:.1f} tokens/s)")
+    check(peak < 75 * 2 ** 30, f"{arch}: peak memory {peak / 2**30:.2f} GiB "
+          f"over 75 GiB")
+    cut = ("" if n_layers is None else
+           f", cut from {full.n_layers} layers (16 bytes a parameter: "
+           f"{n_params * 16 / 2**30:.1f} GiB of f32 parameters, gradients "
+           f"and moments)")
+    extra = (f", {cfg.enc_seq} seeded frames a sequence"
+             if cfg.family == "encdec" else
+             f", {cfg.n_patches} seeded patch embeds and M-RoPE positions a "
+             f"sequence" if cfg.family == "vlm" else "")
+    print(f"[{tag}] {arch} at full width, {cfg.n_layers} layers{cut}, "
+          f"d_model {cfg.d_model}, {n_params} parameters, batch {batch} x "
+          f"{seq} tokens{extra}, remat {cfg.remat}, bf16 activations, f32 "
+          f"parameters and moments: {steps} steps in {wall:.1f} s, every "
+          f"parameter changed; median step (2-{steps}) {step_s * 1e3:.1f} "
+          f"ms, {tokens / step_s:.1f} tokens/s; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    return {"arch": arch, "layers": cfg.n_layers, "launches": launches,
+            "step_ms": step_s * 1e3, "tokens_s": tokens / step_s,
+            "peak_gib": peak / 2 ** 30, "remat": cfg.remat}
+
+
+def train_families_phase(dev, work: Path) -> dict:
+    """Phases 13 and 13b: llama3.2-1b at full width and depth (this
+    slice's main path), then every other non-hybrid config."""
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat == "dots", f"{LM_ARCH}: remat {cfg.remat}")
+    main = train_family(dev, work, LM_ARCH, batch=TRAIN_B, seq=TRAIN_S,
+                        steps=TRAIN_STEPS, tag="train-llama")
+    print(f"[train-llama] phase 13 wall {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    others = []
+    for arch, batch, seq, steps, cut in TRAIN_FAMILY:
+        if cut == "fit":
+            cut = fitting_depth(get_config(arch), TRAIN_STATE_GIB)
+        others.append(train_family(dev, work, arch, batch=batch, seq=seq,
+                                   steps=steps, n_layers=cut,
+                                   tag="train-families"))
+    print(f"[train-families] phase 13b wall {time.perf_counter() - t:.1f} s")
+    return {"main": main, "others": others}
+
+
+def _train_batch(cfg, seq: int, batch: int, step: int, device):
+    """Batch ``step`` of the trainer's seeded stream on ``device``; a vlm
+    batch's patch embeds cover at most half its tokens."""
+    import torch
+    from repro_torch.data import make_stream
+    b = make_stream(cfg, seq, batch, seed=0).batch_at(step)
+    if "patch_embeds" in b:
+        b["patch_embeds"] = b["patch_embeds"][:, :seq // 2]
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def train_card_vs_host(dev, cfg, *, seq: int, tol: float, what: str,
+                       steps: int = 2, seed: int = 4) -> float:
+    """``steps`` AdamW steps on the card against the same on the host,
+    the same seeded weights, batches of 1 x ``seq`` tokens: the MoE's
+    chosen experts first (every router call, forward and recomputation),
+    then loss and grad_norm each step and every parameter after, at
+    rtol = atol = ``tol``.  Returns the largest parameter difference."""
+    import torch
+    from repro_torch.models import make_model
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.train_step import TrainState, param_tree
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0, schedule="constant")
+    p_dev = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    runs = []
+    for model, params in ((make_model(cfg, device=dev), p_dev),
+                          (make_model(cfg, device="cpu"),
+                           copy.deepcopy(p_dev).to("cpu"))):
+        params.requires_grad_(True)
+        runs.append([model, make_train_step(model, opt),
+                     TrainState(params, adamw_init(param_tree(params)),
+                                None)])
+    t_cpu, routed = 0.0, 0
+    with _Routes() as routes:
+        for step in range(steps):
+            mets = []
+            for side, run in zip(("card", "host"), runs):
+                model, fn, st = run
+                routes.side = side
+                t = time.perf_counter()
+                run[2], met = fn(st, _train_batch(cfg, seq, 1, step,
+                                                  model.device))
+                mets.append({k: float(v) for k, v in met.items()})
+                if side == "host":
+                    t_cpu += time.perf_counter() - t
+            routed = routes.check_equal(f"{what} {cfg.name} step {step + 1}")
+            for k in ("loss", "grad_norm"):
+                check(abs(mets[0][k] - mets[1][k]) <= tol + tol * abs(
+                    mets[1][k]), f"{what} {cfg.name} step {step + 1}: {k} "
+                    f"card {mets[0][k]:.6f} host {mets[1][k]:.6f} (rtol = "
+                    f"atol = {tol:g})")
+    worst = 0.0
+    for (n, a), b in zip(runs[0][2].params.named_parameters(),
+                         runs[1][2].params.parameters()):
+        a = a.detach().cpu()
+        diff = float((a - b.detach()).abs().max())
+        worst = max(worst, diff)
+        check(bool(torch.allclose(a, b.detach(), rtol=tol, atol=tol)),
+              f"{what} {cfg.name}: parameter {n} card and host differ by "
+              f"{diff:.3g} (rtol = atol = {tol:g})")
+    print(f"[{what}] {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32, remat {cfg.remat}: {steps} AdamW steps of "
+          f"{seq} tokens, loss {mets[1]['loss']:.6f}, every parameter "
+          f"within {tol:g} of the host's (max abs diff {worst:.3g})"
+          + (f"; MoE experts equal in all {routed} router calls (forward "
+             f"and recomputation)" if routed else "")
+          + f"; host steps {t_cpu:.1f} s")
+    del runs, p_dev
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_dots_vs_none(dev) -> None:
+    """llama3.2-1b at full width cut to 2 layers, f32, on the card: the
+    loss and every gradient under remat "dots" against "none" at 1e-5."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.train.train_step import param_tree
+
+    cfg = get_config(LM_ARCH).replace(n_layers=2, dtype="float32")
+    state = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(5)).state_dict()
+    out = {}
+    for remat in ("none", "dots"):
+        model = make_model(cfg.replace(remat=remat), device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        params.load_state_dict(state)
+        params.requires_grad_(True)
+        loss, _ = model.loss(params, _train_batch(cfg, 256, 2, 0, dev))
+        out[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(param_tree(params).values())))
+        del params
+    check(bool(torch.allclose(out["dots"][0], out["none"][0], rtol=1e-5,
+                              atol=1e-5)),
+          f"dots vs none: loss {float(out['dots'][0])} against "
+          f"{float(out['none'][0])}")
+    worst = 0.0
+    for a, b in zip(out["dots"][1], out["none"][1]):
+        worst = max(worst, float((a - b).abs().max()))
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)),
+              f"dots vs none: a gradient differs by "
+              f"{float((a - b).abs().max()):.3g}")
+    print(f"[train-card-host] {LM_ARCH} 2 layers f32 on the card, 2 x 256 "
+          f"tokens: remat 'dots' against 'none', loss and every gradient "
+          f"within 1e-5 (max abs diff {worst:.3g})")
+    del out
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_host_phase(dev) -> None:
+    """Phase 13c: full width cut to 2 layers (whisper 2 + 2), f32, TF32
+    off, card against host at 1e-3; "dots" against "none" on the card at
+    1e-5; then every smoke config at 1e-4."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    for arch in TRAIN_CARD_HOST:
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+        if cfg.family == "encdec":
+            cfg = cfg.replace(n_enc_layers=2)
+        train_card_vs_host(dev, cfg, seq=64, tol=1e-3,
+                           what="train-card-host")
+    train_dots_vs_none(dev)
+    for arch in TRAIN_SMOKE:
+        train_card_vs_host(dev, get_smoke_config(arch), seq=32, tol=1e-4,
+                           what="train-card-host-smoke")
+    print(f"[train-card-host] phase 13c wall {time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -2449,7 +2771,8 @@ def main() -> int:
     # ---- 9. training: the backward kernels, the main path, card vs host,
     # restart ------------------------------------------------------------------
     bwd_entries = train_kernels_phase(dev)
-    trained = train_phase(dev, Path(work.name))
+    trained = train_family(dev, Path(work.name), ARCH, batch=TRAIN_B,
+                           seq=TRAIN_S, steps=TRAIN_STEPS, tag="train")
     for entry in (flash_entry, ssd_entry, *bwd_entries):
         entry["train_launches"] = trained["launches"][entry["name"]]
     for entry in bwd_entries:
@@ -2473,7 +2796,33 @@ def main() -> int:
     flash_entry["launches"] = last["whisper"]["flash_attention"]
     last_families_card_vs_host_phase(dev)
 
-    # ---- 12. kernels line ---------------------------------------------------
+    # ---- 13. training every non-hybrid family: llama3.2-1b (this slice's
+    # main path), the other configs, card against host, restart ----------
+    trained_families = train_families_phase(dev, Path(work.name))
+    llama_train = trained_families["main"]["launches"]
+    flash_entry["whisper_launches"] = flash_entry["launches"]
+    for entry in (flash_entry, bwd_entries[0]):
+        entry["zamba2_train_launches"] = entry.pop("train_launches")
+        entry["family_train_launches"] = {
+            st["arch"]: st["launches"][entry["name"]]
+            for st in trained_families["others"]}
+        entry["launches"] = llama_train[entry["name"]]
+    # the main path's shape, llama's (2, 4096, 32, 64) kv 8, in the
+    # top-level numbers; the earlier main shapes beside them
+    llama = bwd_entries[0]["family_shapes"][0]
+    for entry, numbers in ((flash_entry, llama["forward"]),
+                           (bwd_entries[0], llama)):
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        entry["zamba2_shape"] = {k: entry[k] for k in keys}
+        entry.update({k: numbers[k] for k in keys[1:]},
+                     shape=llama["shape"], kv_heads=llama["kv_heads"],
+                     max_abs_err=max(entry["max_abs_err"],
+                                     numbers["max_abs_err"]))
+    train_card_vs_host_phase(dev)
+    train_restart_phase(dev, Path(work.name), LM_ARCH, "train-restart-llama")
+
+    # ---- 14. kernels line ---------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -2531,6 +2880,13 @@ def main() -> int:
                  if "encoder_frames_s" in st else "")
               + (f", {st['decode_launches']} kernels a decode step"
                  if "decode_launches" in st else ""))
+    for st in [trained_families["main"]] + trained_families["others"]:
+        print(f"[summary] training {st['arch']} ({st['layers']} layers, "
+              f"remat {st['remat']}): {st['step_ms']:.1f} ms a step, "
+              f"{st['tokens_s']:.1f} tokens/s, peak {st['peak_gib']:.3f} "
+              f"GiB, {st['launches']['flash_attention']} flash and "
+              f"{st['launches']['flash_attention_bwd']} flash backward "
+              f"launches")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

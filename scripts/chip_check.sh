@@ -18,8 +18,10 @@ out=${1:-chiprun_out/check}
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
     > "$out/summary.txt"
+start=$(date +%s)
 python3 chip_smoke.py > "$out/smoke.log" 2>&1
 smoke=$?
+echo "smoke seconds $(( $(date +%s) - start ))" >> "$out/summary.txt"
 PYTHONPATH=src python3 -m pytest -q -p no:cacheprovider -m cuda \
     tests/test_torch_cuda.py > "$out/cardtests.log" 2>&1
 cards=$?

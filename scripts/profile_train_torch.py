@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the port's zamba2-2.7b training step goes, on one GPU.
+"""Where the time of the port's training step goes, on one GPU.
 
-    PYTHONPATH=src python3 scripts/profile_train_torch.py [--batch 2] [--seq 4096]
+    PYTHONPATH=src python3 scripts/profile_train_torch.py [--arch NAME]
+        [--batch 2] [--seq 4096]
 
-Builds zamba2-2.7b at full width and depth (seeded random weights, bf16
-activations, f32 parameters and AdamW moments, remat "full") on the CUDA
-device, runs one warm-up step of ``train_step.make_train_step``, then
-traces one step with torch.profiler and prints, as
+Builds the config (zamba2-2.7b unless ``--arch`` names another, e.g.
+llama3.2-1b) at full width and depth (seeded random weights, bf16
+activations, f32 parameters and AdamW moments, the config's remat) on
+the CUDA device, runs one warm-up step of ``train_step.make_train_step``
+on the trainer's seeded batches (with the family's frames, patch embeds
+and positions), then traces one step with torch.profiler and prints, as
 ``scripts/profile_serve_torch.py`` does for serving, the wall time, the
 device's busy time and idle share, the time by kind (the two LM kernels
 and their backward kernels, matrix products, the f32->bf16 casts, the
@@ -36,11 +39,11 @@ KINDS = (("flash_attention_bwd", ("flash_bwd_dq", "flash_bwd_dkdv")),
 
 
 def main() -> int:
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-2.7b")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
     args = ap.parse_args()
@@ -48,6 +51,7 @@ def main() -> int:
         print("profile_train_torch: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
+    from repro_torch.data import make_stream
     from repro_torch.models import make_model
     from repro_torch.train import AdamWConfig, make_train_step
     from repro_torch.train import train_state_init
@@ -55,32 +59,31 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(args.arch)
     dev = torch.device("cuda")
     model = make_model(cfg, device=dev)
     opt = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
     state = train_state_init(model, torch.Generator(device=dev).manual_seed(0),
                              opt)
     step = make_train_step(model, opt)
-    rng = np.random.default_rng(0)
+    stream = make_stream(cfg, args.seq, args.batch, seed=0)
 
-    def batch():
-        toks = rng.integers(0, cfg.vocab, (args.batch, args.seq + 1))
-        return {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
-                "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in stream.batch_at(i).items()}
 
-    state, _ = step(state, batch())                  # warm-up
+    state, _ = step(state, batch(0))                 # warm-up
     torch.cuda.synchronize()
-    b = batch()
+    b = batch(1)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         state, met = step(state, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    report(f"train step {args.batch} x {args.seq} tokens, {cfg.n_layers} "
-           f"layers, remat {cfg.remat}, loss {float(met['loss']):.4f}", prof,
-           wall, KINDS)
+    report(f"{cfg.name} train step {args.batch} x {args.seq} tokens, "
+           f"{cfg.n_layers} layers, remat {cfg.remat}, loss "
+           f"{float(met['loss']):.4f}", prof, wall, KINDS)
     return 0
 
 

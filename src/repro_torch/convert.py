@@ -59,7 +59,7 @@ def _flat(tree: Mapping, prefix: str = ""):
             yield f"{prefix}{k}", np.asarray(v)
 
 
-def _stacking(cfg):
+def stacks(cfg):
     """The reference's stacks of per-layer leaves, each (its name, the
     leaves' leading dims, the port's name): hybrid Mamba2 layers
     ``mamba.<leaf>`` (G, per, ...) as ``layers``, transformer layers
@@ -87,10 +87,10 @@ def model_params_from_jax(cfg, params: Mapping,
     ``mamba.<leaf>[g, i]`` becomes ``layers.<g * per + i>.<leaf>``, every
     other stack's ``<stack>.<leaf>[i]`` becomes ``<stack>.<i>.<leaf>``
     (MoE experts, biases and all); tied configs have no ``embed.head``."""
-    stacks = _stacking(cfg)
+    layout = stacks(cfg)
     state: Dict[str, torch.Tensor] = {}
     for name, a in _flat(params):
-        for stack, lead, port in stacks:
+        for stack, lead, port in layout:
             if name.startswith(stack + "."):
                 if a.shape[:len(lead)] != tuple(lead):
                     raise ValueError(f"{name}: leading dims "
@@ -112,12 +112,12 @@ def model_params_to_jax(cfg, params: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of ``model_params_from_jax``: a state dict (tensors on
     any device) -> the reference's parameter pytree as nested dicts of
     float32 numpy arrays, per-layer leaves stacked."""
-    stacks = _stacking(cfg)
+    layout = stacks(cfg)
     out: Dict[str, Any] = {}
     stacked: Dict[tuple, list] = {}
     for name, t in params.items():
         a = t.detach().to("cpu", copy=True).float().numpy()
-        for s, (_, lead, port) in enumerate(stacks):
+        for s, (_, lead, port) in enumerate(layout):
             if name.startswith(port + "."):
                 layer, leaf = name[len(port) + 1:].split(".", 1)
                 stacked.setdefault((s, leaf), [None] * int(np.prod(lead)))[
@@ -126,7 +126,7 @@ def model_params_to_jax(cfg, params: Mapping[str, torch.Tensor]) -> Dict:
         else:
             _put(out, name, a)
     for (s, leaf), arrays in stacked.items():
-        stack, lead, _ = stacks[s]
+        stack, lead, _ = layout[s]
         _put(out, f"{stack}.{leaf}",
              np.stack(arrays).reshape(tuple(lead) + arrays[0].shape))
     return out

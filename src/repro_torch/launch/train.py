@@ -4,15 +4,22 @@ Mirrors ``repro.launch.train``: the same flags, the same restart-exact
 data (batch = f(seed, step)), checkpoint and restore (atomic, async,
 the two newest kept), straggler detection on step-time telemetry, and
 ``--simulate-failure`` to kill the process (exit 42) at a step so that
-tests exercise the restart path.  One device: the CUDA device unless
-``--device cpu`` is given.  Checkpoints are written in the reference's
-layout (``convert.train_state_to_jax``), so either package resumes from
-the other's.  ``--ckpt-every 0`` writes none (the reference has no such
-setting: its modulo by 0 raises); the debug mesh and the sharding rules
-of the reference wait for the LM sharding rules (ROADMAP.md).
+tests exercise the restart path.  Every family of the reference trains:
+the hybrid (zamba2), the decoder-only transformers (dense, MoE, and VLM
+with the batch's seeded patch embeds and M-RoPE positions), the
+encoder-decoder (whisper, with the batch's seeded frames) and the xLSTM;
+each batch entry goes to the model's device.  One device: the CUDA
+device unless ``--device cpu`` is given.  Checkpoints are written in the
+reference's layout (``convert.train_state_to_jax``), so either package
+resumes from the other's.  ``--ckpt-every 0`` writes none (the reference
+has no such setting: its modulo by 0 raises); the debug mesh and the
+sharding rules of the reference wait for the LM sharding rules
+(ROADMAP.md).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
       --smoke --device cpu --steps 50 --batch 8 --seq 128
+
+(any of ``configs.list_archs()`` for ``--arch``).
 """
 from __future__ import annotations
 
@@ -55,8 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="crash (exit 42) after this step, for restart tests")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; 'cpu' runs the "
-                         "plain versions of the kernels on the host)")
+                    help="torch device for any family (default: cuda; "
+                         "'cpu' runs the plain versions of the kernels on "
+                         "the host)")
     return ap.parse_args(argv)
 
 

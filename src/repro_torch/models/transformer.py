@@ -20,27 +20,47 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from .config import ModelConfig
 from .moe import MoE
 
 
+# The ops whose outputs remat "dots" keeps: the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps every product without batch
+# dimensions, and the port writes each of those as ``@`` against a 2-D
+# view of the weight, which dispatches to ``aten.mm`` (``aten.addmm``
+# with a bias).  Products with batch dimensions stay einsums or bmm
+# (``aten.bmm``, an einsum's op even without batch dims) and are
+# recomputed, as the reference recomputes them.  The flash kernel's
+# products launch outside aten, so attention is recomputed too, as the
+# reference's ``_attend`` (einsums with batch dims) is.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_wrap(fn, cfg: ModelConfig):
     """``fn`` (one tensor in) as the reference's ``remat_wrap`` wraps it:
-    "none" as it is, "full" recomputed in the backward pass.  Where no
-    gradient is wanted (``torch.no_grad()``) there is nothing to keep, so
-    every policy returns ``fn``; the "dots" policy (keep the matrix
-    products, recompute the rest) has no counterpart yet and raises only
-    when a gradient is wanted."""
+    "none" as it is, "full" recomputed in the backward pass, "dots"
+    recomputed but for the outputs of its products without batch
+    dimensions (``DOTS_SAVED``).  Where no gradient is wanted
+    (``torch.no_grad()``) there is nothing to keep, so every policy
+    returns ``fn``."""
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' is not ported (ROADMAP.md queue 1)")
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         dots_policy))
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 

@@ -124,8 +124,9 @@ def mlstm_forward(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
     q = (proj(p.wq).float() * scale).to(qkv_dt)
     k = (proj(p.wk).float() / math.sqrt(hd)).to(qkv_dt)
     v = proj(p.wv).to(qkv_dt)
-    g = torch.einsum("bsd,dhg->bshg", x.float(), p.wif.float()) \
-        + p.bif[None, None]
+    # the gate product has no batch dims: "dots" keeps it, as an mm
+    g = (x.float() @ p.wif.float().reshape(D, 2 * H)).unflatten(
+        -1, (H, 2)) + p.bif[None, None]
     logi, logf = g[..., 0], log_sigmoid(g[..., 1])
     st = state if state is not None else init_mlstm_state(cfg, B, x.device)
     hs = []

@@ -13,11 +13,13 @@ state (``state_axes``) wait for the LM sharding rules (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, \
+    Tuple
 
 import torch
+from torch import nn
 
-from ..models.hybrid import HybridLM
+from ..convert import stacks
 from ..models.model import Model
 from . import compression as comp
 from .optim import AdamWConfig, OptState, Tree, adamw_init, adamw_update
@@ -26,32 +28,46 @@ METRICS = ("loss", "nll", "z_loss", "aux", "ppl_proxy")
 
 
 class TrainState(NamedTuple):
-    params: HybridLM               # gradients on
+    params: nn.Module              # gradients on
     opt: OptState
     ef: Optional[comp.EFState]     # error feedback (None = off)
 
 
-def param_tree(params: HybridLM) -> Tree:
+def param_tree(params: nn.Module) -> Tree:
     """The parameters as a dict keyed by name (the optimizer's trees)."""
     return dict(params.named_parameters())
 
 
-def stacked_groups(params: HybridLM) -> List[List[str]]:
-    """For each Mamba2 parameter, its name in every layer, in layer
-    order: the reference's stacked (G, per, ...) leaf, row-major."""
-    out: Dict[str, List[str]] = {}
+def _stacked(params: nn.Module) -> Iterator[Tuple[str, int, str]]:
+    """(name, the reference's leading dims of its leaf, the leaf's name
+    within a layer) of every parameter of a per-layer stack: the
+    reference stacks those layers' leaves (``convert.stacks``), and the
+    port names layer ``i`` of a stack ``<stack>.<i>.<leaf>``."""
+    layout = stacks(params.cfg)
     for n, _ in params.named_parameters():
-        if n.startswith("layers."):
-            out.setdefault(n.split(".", 2)[2], []).append(n)
+        for _, lead, port in layout:
+            if n.startswith(port + "."):
+                yield n, len(lead), f"{port}.{n.split('.', 2)[2]}"
+                break
+
+
+def stacked_groups(params: nn.Module) -> List[List[str]]:
+    """For each per-layer parameter, its name in every layer of its
+    stack, in layer order: the reference's stacked leaf, row-major."""
+    out: Dict[str, List[str]] = {}
+    for n, _, leaf in _stacked(params):
+        out.setdefault(leaf, []).append(n)
     return list(out.values())
 
 
-def decay_mask(params: HybridLM) -> Dict[str, float]:
-    """The reference's weight-decay mask, ``ndim >= 2`` of its leaves:
-    it stacks the Mamba2 layers' parameters (G, per, ...), so their norm
-    scales, biases and per-head vectors are decayed too, and the port's
-    ``layers.<k>.*`` count two more dimensions."""
-    return {n: float(p.dim() + 2 * n.startswith("layers.") >= 2)
+def decay_mask(params: nn.Module) -> Dict[str, float]:
+    """The reference's weight-decay mask, ``ndim >= 2`` of its leaves: it
+    stacks the layers' parameters ((L, ...); the hybrid's Mamba2 layers
+    (G, per, ...)), so their norm scales, biases and per-head vectors are
+    decayed too, and a port parameter of a stack counts its leading
+    dims."""
+    lead = {n: k for n, k, _ in _stacked(params)}
+    return {n: float(p.dim() + lead.get(n, 0) >= 2)
             for n, p in params.named_parameters()}
 
 
@@ -71,20 +87,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     """microbatch: the number of slices of the batch whose gradients are
     summed in float32 and divided by their count (the per-slice batch is
     global_batch // microbatch)."""
-    if model.cfg.family != "hybrid":
-        # the decay mask and the stacked groups below are the hybrid's
-        raise NotImplementedError(
-            f"{model.cfg.name}: training the {model.cfg.family!r} family "
-            f"is not ported yet (only 'hybrid' trains); ROADMAP.md queue 1 "
-            f"lists it")
-
-    def grads_of(params: HybridLM, tree: Tree, batch) -> Tuple[Tree, Dict]:
+    def grads_of(params: nn.Module, tree: Tree, batch) -> Tuple[Tree, Dict]:
         loss, metrics = model.loss(params, batch)
         grads = torch.autograd.grad(loss, list(tree.values()))
         return dict(zip(tree, grads)), {k: metrics[k].detach()
                                         for k in METRICS}
 
-    def accumulate(params: HybridLM, batch) -> Tuple[Tree, Dict]:
+    def accumulate(params: nn.Module, batch) -> Tuple[Tree, Dict]:
         tree = param_tree(params)
         if not microbatch or microbatch <= 1:
             return grads_of(params, tree, batch)

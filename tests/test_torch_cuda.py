@@ -627,6 +627,18 @@ FLASH_BWD_CASES = [  # (B, S, T, H, KV, hd, dtype, causal, window)
     # k-steps a key, where the tensor cores' own f32 sums drift
     (1, 2048, 2048, 8, 2, 80, torch.bfloat16, True, None),
     (1, 100, 100, 2, 2, 20, torch.bfloat16, True, None),    # bf16 FMA route
+    # the families' training shapes, cut to the card tests' size: hd 64
+    # with GQA 4 over 2 x 4096 queries (llama: the dK/dV chain of 4 heads
+    # x 4096 queries), hd 128 with GQA 7 (qwen2-vl), MHA and a window,
+    # whisper's non-causal encoder, its cross-attention of 448 queries
+    # against 1,500 keys (a ragged last key tile) and its causal decoder
+    (2, 4096, 4096, 8, 2, 64, torch.bfloat16, True, None),
+    (1, 512, 512, 14, 2, 128, torch.bfloat16, True, None),
+    (1, 384, 384, 4, 4, 128, torch.bfloat16, True, None),
+    (1, 1024, 1024, 8, 2, 128, torch.bfloat16, True, 512),
+    (2, 1500, 1500, 2, 2, 64, torch.bfloat16, False, None),
+    (2, 448, 1500, 2, 2, 64, torch.bfloat16, False, None),
+    (2, 448, 448, 2, 2, 64, torch.bfloat16, True, None),
 ]
 
 
@@ -811,6 +823,72 @@ def test_smoke_train_step_on_gpu_matches_cpu(gpu, remat):
             assert outs[0][k] == pytest.approx(outs[1][k], rel=1e-4, abs=1e-4)
     assert attention_bwd.launches - f0 == 2 * 2 * 2     # 2 steps x 2 apps
     assert ssd_intra_chunk_bwd.launches - s0 == 2 * 4 * 1
+    for (n, a), b in zip(states[0][1].params.named_parameters(),
+                         states[1][1].params.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,
+                                   atol=1e-4, msg=n)
+
+
+@pytest.mark.parametrize("arch", [
+    "llama3.2-1b", "granite-moe-1b-a400m", "qwen2-vl-7b", "olmo-1b",
+    "smollm-360m", "starcoder2-15b", "mixtral-8x22b", "whisper-small",
+    "xlstm-350m"])
+def test_smoke_family_train_steps_on_gpu_match_cpu(gpu, arch):
+    """Two AdamW steps of each non-hybrid smoke config under remat "dots"
+    (the flash forward twice a layer, its backward kernels once), card
+    against host with the same weights and the trainer's batches (frames,
+    patch embeds and positions included): the experts every MoE router
+    call chose, then loss, grad_norm and every parameter at 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_stream
+    from repro_torch.kernels.flash_attention.ops import attention_bwd
+    from repro_torch.models import make_model, moe
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.train_step import TrainState, param_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).replace(remat="dots")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant",
+                      eps=1e-3)
+    states = []
+    for dev in (gpu, torch.device("cpu")):
+        m = make_model(cfg, device=dev)
+        p = m.init(0).requires_grad_(True)
+        states.append((m, TrainState(p, adamw_init(param_tree(p)), None)))
+    states[1][1].params.load_state_dict(
+        {k: t.cpu() for k, t in states[0][1].params.state_dict().items()})
+    routes = {}
+    router_probs = moe.router_probs
+
+    def recorded(p, x):
+        probs = router_probs(p, x)
+        routes.setdefault(x.device.type, []).append(
+            moe.topk_experts(probs, p.cfg.top_k).cpu())
+        return probs
+
+    stream = make_stream(cfg, 32, 2, seed=3)
+    f0 = attention_bwd.launches
+    moe.router_probs = recorded
+    try:
+        for i in range(2):
+            outs = []
+            for j, (m, st) in enumerate(states):
+                batch = {k: torch.as_tensor(v, device=m.device)
+                         for k, v in stream.batch_at(i).items()}
+                st, met = make_train_step(m, opt)(st, batch)
+                states[j] = (m, st)
+                outs.append({k: float(v) for k, v in met.items()})
+            for k in ("loss", "grad_norm"):
+                assert outs[0][k] == pytest.approx(outs[1][k], rel=1e-4,
+                                                   abs=1e-4)
+    finally:
+        moe.router_probs = router_probs
+    assert len(routes.get("cuda", [])) == len(routes.get("cpu", []))
+    for a, b in zip(routes.get("cuda", []), routes.get("cpu", [])):
+        assert torch.equal(a, b)
+    calls = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else 0 if cfg.family == "ssm" else cfg.n_layers)
+    assert attention_bwd.launches - f0 == 2 * calls * 2   # 2 steps
     for (n, a), b in zip(states[0][1].params.named_parameters(),
                          states[1][1].params.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,

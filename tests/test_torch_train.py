@@ -266,12 +266,26 @@ def test_remat_full_gives_the_gradients_of_none():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_remat_dots_is_not_ported():
-    m = make_model(get_smoke_config(ARCH).replace(remat="dots"),
-                   device="cpu")
-    params = m.init(0).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.loss(params, _to_torch(_batch(m.cfg, S=8)))
+def test_remat_dots_gradients_match_reference():
+    """remat "dots" in both packages: the loss and every gradient against
+    ``jax.grad`` (the reference keeps its products without batch dims,
+    the port its ``aten.mm`` outputs; ``tests/test_torch_remat.py``)."""
+    rm = ref_make(ref_smoke(ARCH).replace(remat="dots"))
+    rs, _ = ref_state_init(rm, jax.random.key(0), roptim.AdamWConfig(**OPT))
+    pm = make_model(get_smoke_config(ARCH).replace(remat="dots"),
+                    device="cpu")
+    ps = convert.train_state_from_jax(pm.cfg, jax.tree.map(np.asarray, rs))
+    batch = _batch(pm.cfg, seed=4, S=70)
+    (want_loss, _), want = jax.jit(jax.value_and_grad(
+        lambda p, b: rm.loss(p, b), has_aux=True))(rs.params,
+                                                   _to_jax(batch))
+    tree = param_tree(ps.params)
+    loss, _ = pm.loss(ps.params, _to_torch(batch))
+    got = dict(zip(tree, torch.autograd.grad(loss, list(tree.values()))))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    _close_trees(convert.model_params_to_jax(pm.cfg, got),
+                 jax.tree.map(np.asarray, want))
 
 
 # ---------------------------------------------------------------------------
