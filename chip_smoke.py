@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the CGRA estimator's
 DSE sweep, zamba2-2.7b serving and training, serving the decoder-only
 transformer families (dense, MoE, VLM), the encoder-decoder whisper-small
-and the xLSTM xlstm-350m, and training all of them.
+and the xLSTM xlstm-350m, training all of them, and llama3.2-1b's trunk
+pipelined over a stage mesh.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -183,10 +184,26 @@ src/repro_torch on first use.  Every phase fails loudly (non-zero exit):
    at 1e-5; 2 steps of each of the nine smoke configs at 1e-4;
 13d. llama3.2-1b's smoke trainer killed at step 4 (exit 42) and resumed
    on the card: steps 5-8 equal an uninterrupted run at 1e-5;
-14. one {"kernels": [...]} line with times, bounds and launch counts
-   (flash and its backward: this slice's main path, phase 13, at its
-   shape; SSD: phase 7; SSD backward: phase 9b);
-15. the last line {"ok": true, "device": {...}}.
+14. the LM's multi-device pieces, this slice's main path: llama3.2-1b's
+   16 decoder layers at full width (seeded weights, bf16 activations)
+   split into 4 stages of 4 on a "stage" mesh (the first 4 cards, or
+   cuda:0 repeated 4 times on a machine with fewer), 8 microbatches of
+   (1, 2048) tokens' embeddings through parallel.pipeline_apply (a
+   stream a stage) against the same trunk run microbatch by microbatch
+   (bit for bit, else within the bf16 tolerance 2e-2, said so); exactly
+   128 flash launches on the tensor cores, the pipelined and sequential
+   walls after a warm-up, the GPipe bubble (S-1)/(M+S-1) = 3/11, peak
+   memory; the flash kernel held to its plain version at that shape and
+   timed beside it, scaled_dot_product_attention and its bound; then
+   train.compression.compressed_psum over the mesh's 4 shards, a seeded
+   f32 tensor a shard in each of llama3.2-1b's 146 gradient shapes (1.24
+   G elements a shard), equal bit for bit to the same run on the host,
+   with the bytes on the wire against an f32 all-reduce's;
+15. one {"kernels": [...]} line with times, bounds and launch counts
+   (flash: this slice's main path, phase 14, at its shape; its
+   backward: phase 13 at its shape; SSD: phase 7; SSD backward: phase
+   9b);
+16. the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -2500,6 +2517,243 @@ def train_card_vs_host_phase(dev) -> None:
     print(f"[train-card-host] phase 13c wall {time.perf_counter() - t:.1f} s")
 
 
+# the LM's multi-device pieces (phase 14): llama3.2-1b's full trunk
+# pipelined over a 4-stage mesh, M microbatches of one sequence each; and
+# compressed_psum over the mesh's 4 shards in llama3.2-1b's gradient shapes
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 2048
+
+
+def stage_mesh(n: int):
+    """A 1-d "stage" mesh of ``n`` entries: the first ``n`` cards where the
+    machine has them, else cuda:0 repeated."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+
+    if torch.cuda.device_count() >= n:
+        return make_mesh((n,), ("stage",))
+    return make_debug_mesh(n, ("stage",), device="cuda:0")
+
+
+def pipeline_flash_case(dev, cfg) -> dict:
+    """Phase 14: the flash kernel at the pipeline's shape, (1, PIPE_SEQ) tokens of
+    llama3.2-1b bf16 causal, held to its plain version (2e-2 and two bf16
+    steps of each element) on the tensor cores and timed beside the plain
+    version, scaled_dot_product_attention and the bound."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.flash_attention.ops import attention, last_route
+    from repro_torch.kernels.flash_attention.ref import (attention_plain,
+                                                         expand_kv)
+
+    B, S, H, KV, hd = 1, PIPE_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(B, S, h, hd, device=dev, generator=gen
+                           ).to(torch.bfloat16) for h in (H, KV, KV))
+    got = attention(q, k, v, causal=True)
+    ran = last_route()
+    want = attention_plain(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    check(ran == "wgmma", f"pipeline flash shape took the {ran} route")
+    check(bool(torch.allclose(got.float(), want.float(), rtol=2e-2,
+                              atol=2e-2)
+               and torch.allclose(got.float(), want.float(), rtol=2.0 ** -6,
+                                  atol=1e-5)),
+          f"flash at the pipeline's shape: max abs err {err:.3g}")
+    ms = cuda_ms(lambda: attention(q, k, v, causal=True), reps=20)
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, causal=True), reps=5)
+    qt, kt, vt = q.transpose(1, 2), expand_kv(k, H), expand_kv(v, H)
+    sdpa(qt, kt, vt, is_causal=True)
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * B * S * KV * hd),
+                       4 * B * H * hd * pairs, BF16_OPS_PER_S)
+    print(f"[pipeline] flash at the pipeline's shape (B={B}, S={S}, H={H}, "
+          f"KV={KV}, hd={hd}, bf16, causal), route {ran}: max abs err "
+          f"{err:.3g} <= 2e-2 and within two bf16 steps; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": [B, S, H, hd], "kv_heads": KV, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def pipeline_phase(dev) -> dict:
+    """Phase 14, this slice's main path: llama3.2-1b's 16 decoder layers
+    at full width (seeded weights, f32 parameters, bf16 activations)
+    split into PIPE_STAGES stages of 4 on a "stage" mesh, PIPE_MICRO
+    microbatches of (1, PIPE_SEQ) tokens' embeddings through
+    ``pipeline_apply`` (each stage on its own stream), against the same
+    trunk run microbatch by microbatch; exact flash launches (16 a
+    microbatch, all on the tensor cores), both walls after a warm-up,
+    the GPipe bubble and peak memory.  Then ``compressed_psum`` over the
+    mesh's shards, one seeded f32 tensor a shard in each of llama3.2-1b's
+    gradient shapes, held bit for bit to the same on the host, with the
+    bytes on the wire against an f32 all-reduce's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.train import compression as comp
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    check(cfg.dtype == "bfloat16", f"{LM_ARCH}: dtype {cfg.dtype}")
+    S_, M = PIPE_STAGES, PIPE_MICRO
+    mesh = stage_mesh(S_)
+    devs = mesh.flat()
+    params = make_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    per = cfg.n_layers // S_
+    stages = [list(params.layers[s * per:(s + 1) * per]) for s in range(S_)]
+    for s, layers in enumerate(stages):
+        for layer in layers:
+            layer.to(devs[s])
+    positions = {d: torch.arange(PIPE_SEQ, dtype=torch.int32,
+                                 device=d)[None] for d in mesh.distinct()}
+
+    def stage_fn(layers, h):
+        pos = positions[h.device]
+        for layer in layers:
+            h = layer(h, pos)[0]
+        return h
+
+    rng = np.random.default_rng(14)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (M, PIPE_SEQ)),
+                             device=devs[0])
+    run = pipeline_apply(stage_fn, mesh, n_microbatches=M)
+
+    def sequential():
+        outs = []
+        for m in range(M):
+            h = x[m]
+            for s in range(S_):
+                h = stage_fn(stages[s], h.to(devs[s]))
+            outs.append(h.to(devs[0]))
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        x = L.embed_tokens(params.embed, cfg, tokens)[:, None]
+        run(stages, x)
+        sequential()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        y = run(stages, x)
+        pipe_issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        launches = _train_launches()
+        pipe_route = fo.last_route()     # the pipelined run's, not seq's
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        want = sequential()
+        seq_issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    calls = cfg.n_layers * M
+    print(f"[pipeline] launches in the pipelined run: {launches} (expected "
+          f"{calls} flash: {cfg.n_layers} layers x {M} microbatches); flash "
+          f"route {pipe_route}")
+    check(launches == {"flash_attention": calls, "flash_attention_bwd": 0,
+                       "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0},
+          f"pipeline launches {launches}, expected {calls} flash")
+    check(pipe_route == "wgmma", "the pipeline's attention did not run on "
+          "the tensor cores")
+    check(tuple(y.shape) == (M, 1, PIPE_SEQ, cfg.d_model)
+          and y.device == devs[0] and y.dtype == torch.bfloat16,
+          f"pipeline output {tuple(y.shape)} {y.dtype} on {y.device}")
+    check(bool(torch.isfinite(y).all()), "non-finite pipeline output")
+    bitwise = torch.equal(y, want)
+    err = float((y.float() - want.float()).abs().max())
+    if not bitwise:
+        check(bool(torch.allclose(y.float(), want.float(), rtol=2e-2,
+                                  atol=2e-2)),
+              f"pipelined trunk against the sequential one: max abs err "
+              f"{err:.3g} over the bf16 tolerance 2e-2")
+    with torch.no_grad():
+        logits = L.logits_from_hidden(params.embed, cfg,
+                                      params.ln_f(y[:1, 0].to(dev)))
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "non-finite logits of the pipelined trunk")
+    bubble = (S_ - 1) / (M + S_ - 1)
+    tokens_n = M * PIPE_SEQ
+    print(f"[pipeline] {LM_ARCH} trunk at full width and depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.hd}, kv {cfg.n_kv_heads}; seeded weights, bf16 "
+          f"activations) over {S_} stages of {per} layers on "
+          f"{[str(d) for d in devs]} ({torch.cuda.device_count()} visible "
+          f"card(s)), {M} microbatches of (1, {PIPE_SEQ}) tokens: "
+          + ("equal to the sequential trunk bit for bit" if bitwise else
+             f"NOT bitwise equal to the sequential trunk (max abs err "
+             f"{err:.3g}, within the bf16 tolerance 2e-2)")
+          + f"; pipelined wall {pipe_s * 1e3:.1f} ms "
+          f"({tokens_n / pipe_s:.1f} tokens/s; the host returned after "
+          f"{pipe_issue * 1e3:.1f} ms), sequential wall "
+          f"{seq_s * 1e3:.1f} ms ({tokens_n / seq_s:.1f} tokens/s; host "
+          f"{seq_issue * 1e3:.1f} ms), "
+          f"pipelined/sequential {pipe_s / seq_s:.3f}; GPipe bubble "
+          f"(S-1)/(M+S-1) = {S_ - 1}/{M + S_ - 1} = {bubble:.4f}; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    del x, y, want, logits, stages, positions
+    flash = pipeline_flash_case(dev, cfg)
+
+    # compressed_psum: one seeded f32 tensor a shard in each gradient shape
+    shapes = [(n, tuple(p.shape)) for n, p in params.named_parameters()]
+    del params
+    torch.cuda.empty_cache()
+    n_el = sum(int(np.prod(s)) for _, s in shapes)
+    gens = [torch.Generator(device=d).manual_seed(100 + i)
+            for i, d in enumerate(devs)]
+    card_s = host_s = 0.0
+    wire = f32_wire = 0
+    torch.cuda.reset_peak_memory_stats()
+    for name, shape in shapes:
+        xs = [torch.randn(shape, device=d, generator=g) * 1e-3
+              for d, g in zip(devs, gens)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = comp.compressed_psum(xs)
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - t0
+        host_in = [t.cpu() for t in xs]
+        t0 = time.perf_counter()
+        host = comp.compressed_psum(host_in)
+        host_s += time.perf_counter() - t0
+        check(all(g.device == d for g, d in zip(got, devs)),
+              f"compressed_psum {name}: a result off its shard's device")
+        check(torch.equal(got[0].cpu(), host[0]) and all(
+            torch.equal(g, got[0].to(g.device)) for g in got[1:]),
+            f"compressed_psum {name} {shape}: the card's result differs "
+            f"from the host's")
+        n = int(np.prod(shape))
+        blocks = -(-n // comp.BLOCK)
+        wire += len(xs) * blocks * (comp.BLOCK + 4)
+        f32_wire += len(xs) * n * 4
+        del xs, got, host_in, host
+    psum_peak = torch.cuda.max_memory_allocated()
+    print(f"[pipeline] compressed_psum over {len(devs)} shards, "
+          f"{len(shapes)} tensors in {LM_ARCH}'s gradient shapes "
+          f"({n_el} elements a shard, seeded f32): equal to the host's run "
+          f"bit for bit; card {card_s * 1e3:.1f} ms, host "
+          f"{host_s * 1e3:.1f} ms; on the wire {wire} bytes (int8 payload "
+          f"and an f32 scale a block of {comp.BLOCK}) against {f32_wire} "
+          f"for an f32 all-reduce ({f32_wire / wire:.3f}x fewer); "
+          f"max_memory_allocated {psum_peak / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    print(f"[pipeline] phase 14 wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "pipe_ms": pipe_s * 1e3,
+            "seq_ms": seq_s * 1e3, "pipe_issue_ms": pipe_issue * 1e3,
+            "seq_issue_ms": seq_issue * 1e3, "bitwise": bitwise, "max_abs_err": err,
+            "bubble": bubble, "peak_gib": peak / 2 ** 30, "flash": flash,
+            "psum_card_ms": card_s * 1e3, "psum_host_ms": host_s * 1e3,
+            "wire_bytes": wire, "f32_wire_bytes": f32_wire,
+            "psum_elements": n_el}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2822,7 +3076,20 @@ def main() -> int:
     train_card_vs_host_phase(dev)
     train_restart_phase(dev, Path(work.name), LM_ARCH, "train-restart-llama")
 
-    # ---- 14. kernels line ---------------------------------------------------
+    # ---- 14. the LM's multi-device pieces: llama3.2-1b's trunk through
+    # pipeline_apply on a 4-stage mesh (this slice's main path),
+    # compressed_psum ------------------------------------------------------
+    pipe = pipeline_phase(dev)
+    flash_entry["llama_train_launches"] = flash_entry["launches"]
+    flash_entry["launches"] = pipe["launches"]["flash_attention"]
+    keys = ("shape", "kv_heads", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    flash_entry["llama_train_shape"] = {k: flash_entry[k] for k in keys}
+    flash_entry.update({k: pipe["flash"][k] for k in keys},
+                       max_abs_err=max(flash_entry["max_abs_err"],
+                                       pipe["flash"]["max_abs_err"]))
+
+    # ---- 15. kernels line ---------------------------------------------------
     M = images.shape[1]
     sweep_bytes = 2 * B * M * 4            # images read, final images written
     sweep_bound = max(
@@ -2887,6 +3154,17 @@ def main() -> int:
               f"GiB, {st['launches']['flash_attention']} flash and "
               f"{st['launches']['flash_attention_bwd']} flash backward "
               f"launches")
+    print(f"[summary] pipeline {LM_ARCH} ({PIPE_STAGES} stages, "
+          f"{PIPE_MICRO} microbatches of {PIPE_SEQ} tokens): "
+          f"{pipe['pipe_ms']:.1f} ms pipelined, {pipe['seq_ms']:.1f} ms "
+          f"sequential, bubble {pipe['bubble']:.4f}, peak "
+          f"{pipe['peak_gib']:.3f} GiB, "
+          f"{pipe['launches']['flash_attention']} flash launches, "
+          + ("bit for bit" if pipe["bitwise"] else
+             f"max abs err {pipe['max_abs_err']:.3g}")
+          + f"; compressed_psum {pipe['psum_card_ms']:.1f} ms on the card, "
+          f"{pipe['wire_bytes']} bytes on the wire against "
+          f"{pipe['f32_wire_bytes']}")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

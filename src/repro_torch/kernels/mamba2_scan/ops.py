@@ -50,8 +50,9 @@ def _check(x, dt, cum, Bm, Cm) -> None:
 
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` takes the kernels (a CUDA tensor) rather than the
-    plain version (a CPU tensor); anything else raises."""
-    if t.device.type not in ("cuda", "cpu"):
+    plain version (a CPU tensor, or a meta tensor: shapes only, which
+    the dry-run's FLOP count walks); anything else raises."""
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"ssd_intra_chunk: unsupported device {t.device}")
     return t.device.type == "cuda"
 

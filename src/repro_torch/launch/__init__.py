@@ -1,1 +1,2 @@
-"""Entry points of the port: ``python -m repro_torch.launch.serve``."""
+"""Launchers: meshes (``mesh``), the multi-pod dry-run (``dryrun``) and
+the train / serve drivers (``python -m repro_torch.launch.serve``)."""

@@ -1,4 +1,4 @@
-"""Mesh construction for sharded sweeps.
+"""Mesh construction: sharded sweeps, pipelines, the production mesh.
 
 Functions, not module constants: importing this module never touches
 the CUDA runtime."""
@@ -50,3 +50,14 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     arr = np.empty(n, dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(tuple(shape)), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: 16x16 = 256 devices ("data", "model").  Multi-pod: 2
+    pods = 512 devices ("pod", "data", "model"); DP rides ("pod",
+    "data").  The mesh is abstract (every entry the meta device): shape
+    and axis names for the sharding rules and the dry-run, and nothing
+    to run on."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * int(np.prod(shape)))

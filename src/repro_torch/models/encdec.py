@@ -94,6 +94,8 @@ class EncDecLM(nn.Module):
         self.embed = L.Embedding(cfg, g, device)
         self.enc_pos = L.param(dense_init((cfg.enc_seq, D), g, device))
         self.dec_pos = L.param(dense_init((1 << 16, D), g, device))
+        self.logical_axes = {"enc_pos": (None, "embed"),
+                             "dec_pos": (None, "embed")}
         self.enc_layers = nn.ModuleList(EncoderLayer(cfg, g, device)
                                         for _ in range(cfg.n_enc_layers))
         self.ln_enc = L.Norm(cfg, device)

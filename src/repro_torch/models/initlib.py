@@ -6,13 +6,20 @@ and Mamba2's ``A_log`` / ``dt_bias``.  The numbers differ from
 ``jax.random``'s for the same seed; the distributions do not.  Tests
 that compare the two packages carry the reference's weights across with
 ``repro_torch.convert`` instead.
+
+Each module names its own parameters' logical axes when it builds them
+(a ``logical_axes`` dict, as the reference's ``dense_init`` takes its
+``axes``); ``param_axes`` collects them for a whole model.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
+
+Axes = Tuple[Optional[str], ...]
 
 
 def trunc_normal(shape: Sequence[int], scale: float,
@@ -55,3 +62,22 @@ def dt_bias_init(n_heads: int, generator: torch.Generator,
     dt = torch.empty(n_heads, dtype=torch.float32, device=device)
     dt.uniform_(1e-3, 1e-1, generator=generator)
     return torch.log(torch.expm1(dt.clamp_min(1e-4)))
+
+
+def param_axes(module: nn.Module) -> Dict[str, Axes]:
+    """``{parameter name: logical axes}`` of every parameter of
+    ``module``, in ``named_parameters`` order, from the ``logical_axes``
+    each submodule declares for its own parameters.  A parameter of a
+    per-layer stack carries its layer's axes (the reference's stacked
+    leaf has a leading None more per stacked dim).  A parameter without
+    axes raises."""
+    found: Dict[str, Axes] = {}
+    for prefix, m in module.named_modules():
+        for name, ax in getattr(m, "logical_axes", {}).items():
+            if getattr(m, name) is not None:
+                found[f"{prefix}.{name}" if prefix else name] = tuple(ax)
+    names = [n for n, _ in module.named_parameters()]
+    missing = [n for n in names if n not in found]
+    if missing:
+        raise ValueError(f"parameters without logical axes: {missing[:8]}")
+    return {n: found[n] for n in names}

@@ -9,8 +9,11 @@ RoPE (whisper's learned absolute positions), the SwiGLU and GELU MLPs,
 the tied or untied embedding and the logits with their
 padded-vocabulary mask.  Parameters keep the reference's shapes and
 names (``wq`` is (D, H, hd), ...), so ``repro_torch.convert`` carries
-weights across by name.  The reference's sharding annotations have no
-counterpart: the port runs on one device.  Parameters are held without
+weights across by name.  Each module names its parameters' logical axes
+at construction (``logical_axes``, the reference's ``dense_init(key,
+shape, axes)``; ``initlib.param_axes`` collects them) for the sharding
+rules; the activations' ``constrain`` calls have no counterpart, as one
+process keeps every tensor whole.  Parameters are held without
 gradients, as serving needs them; a trainer turns gradients on
 (``params.requires_grad_(True)``).
 """
@@ -52,6 +55,8 @@ class Norm(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.scale = self.bias = None
+        ax = (None,) if cfg.norm_param_replicated else ("embed_tp",)
+        self.logical_axes = {"scale": ax, "bias": ax}
         if cfg.norm in ("rmsnorm", "layernorm"):
             self.scale = param(ones_init((d,), device))
         if cfg.norm == "layernorm":
@@ -109,7 +114,8 @@ def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float,
             raise ValueError(f"mrope sections {mrope_sections} must cover "
                              f"head_dim/2 = {hd // 2}")
         sec = torch.repeat_interleave(torch.arange(3, device=dev),
-                                      torch.tensor([t, h, w], device=dev))
+                                      torch.tensor([t, h, w], device=dev),
+                                      output_size=hd // 2)
         ang = positions.float()[:, :, sec] * inv
     else:
         ang = positions.float()[..., None] * inv
@@ -159,6 +165,16 @@ class Attention(nn.Module):
             self.bq = param(zeros_init((H, hd), device))
             self.bk = param(zeros_init((KV, hd), device))
             self.bv = param(zeros_init((KV, hd), device))
+        if cfg.attn_tp == "heads":
+            h_axes = ("embed", "heads", "head_dim")
+            kv_axes = ("embed", "kv_heads", "head_dim")
+            o_axes = ("heads", "head_dim", "embed")
+        else:  # head_dim TP: heads replicated, hd sharded
+            h_axes = kv_axes = ("embed", None, "head_dim_tp")
+            o_axes = (None, "head_dim_tp", "embed")
+        self.logical_axes = {"wq": h_axes, "wk": kv_axes, "wv": kv_axes,
+                             "wo": o_axes, "bq": h_axes[1:],
+                             "bk": kv_axes[1:], "bv": kv_axes[1:]}
 
     def forward(self, x, **kw):
         return attention_forward(self, self.cfg, x, **kw)
@@ -326,6 +342,8 @@ class MLP(nn.Module):
             self.wg = param(dense_init((D, F), g, device))
         self.wu = param(dense_init((D, F), g, device))
         self.wd = param(dense_init((F, D), g, device, fan_in=F))
+        self.logical_axes = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+                             "wd": ("mlp", "embed")}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_mlp(self, self.cfg, x)
@@ -363,6 +381,8 @@ class Embedding(nn.Module):
         self.head = None
         if not cfg.tie_embeddings:
             self.head = param(dense_init((D, Vp), generator, device))
+        self.logical_axes = {"table": ("vocab", "embed"),
+                             "head": ("embed", "vocab")}
 
 
 def embed_tokens(p: Embedding, cfg: ModelConfig,

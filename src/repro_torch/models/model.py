@@ -8,6 +8,12 @@ Mirrors ``repro.models.model.Model`` and its ``lm_loss``:
   decode(params, tokens, caches, index) -> (logits, caches)
   init_caches(batch, context)
   splice_cache(caches, cache_one, slot)
+  param_shapes()                        -> (meta state dict, axes)
+  cache_axes(), input_specs(shape)      -> the dry-run's contract
+
+``param_shapes``, ``cache_axes`` and ``input_specs`` are the dry-run's
+contract: shapes, types and logical axes of every parameter and input,
+as meta tensors (nothing allocated).
 
 Every family of the reference is ported: the hybrid (zamba2), the
 decoder-only transformers (dense, moe, vlm), the encoder-decoder (encdec,
@@ -17,7 +23,7 @@ the caller names the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Union
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import torch
 from torch import nn
@@ -27,13 +33,15 @@ from ..device import DeviceLike, resolve_device
 from . import encdec, hybrid
 from . import transformer as tfm
 from . import xlstm_model
-from .config import ModelConfig
-from .layers import KVCache
+from .config import ModelConfig, ShapeConfig
+from .initlib import param_axes
+from .layers import KVCache, cdt
 from .ssm import SSMState
 from .xlstm import MLSTMState, SLSTMState
 
 _FAMILY = {"dense": tfm, "moe": tfm, "vlm": tfm, "encdec": encdec,
            "hybrid": hybrid, "ssm": xlstm_model}
+META = torch.device("meta")
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
@@ -76,11 +84,23 @@ class Model:
     def init(self, seed: Union[int, torch.Generator] = 0) -> nn.Module:
         """Fresh parameters on the model's device, drawn from ``seed`` (a
         ``torch.Generator`` on that device, or an integer seeding one):
-        a ``TransformerLM``, ``HybridLM``, ``EncDecLM`` or ``XLSTMLM``."""
+        a ``TransformerLM``, ``HybridLM``, ``EncDecLM`` or ``XLSTMLM``.
+        On the meta device (shapes only) the generator is the host's:
+        there is no meta generator, and nothing is drawn."""
         gen = seed
         if not isinstance(seed, torch.Generator):
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+            where = "cpu" if self.device.type == "meta" else self.device
+            gen = torch.Generator(device=where).manual_seed(seed)
         return self.mod.init_params(self.cfg, gen, self.device)
+
+    def param_shapes(self) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, Tuple]]:
+        """(state dict of meta tensors, {name: logical axes}) of the
+        model's parameters, without allocating: the reference's
+        ``param_shapes``, per layer (``convert.stacks`` restacks the
+        names; a stacked leaf's axes gain leading Nones)."""
+        params = Model(self.cfg, META).init(0)
+        return dict(params.named_parameters()), param_axes(params)
 
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]):
         """(loss, metrics) of a batch {"tokens", "labels"} (B, S), and for
@@ -136,6 +156,72 @@ class Model:
                 m=MLSTMState(C=1, n=1, m=1),
                 s=SLSTMState(c=1, n=1, m=1, h=1))
         return tfm.DecoderCaches(kv=kv1)
+
+    def cache_axes(self):
+        """Logical axes of every cache leaf (the ``init_caches`` tree)."""
+        kv_ax = KVCache(
+            k=(None, "cache_batch", "cache_seq", "cache_heads", None),
+            v=(None, "cache_batch", "cache_seq", "cache_heads", None),
+            pos=(None, "cache_batch", "cache_seq"))
+        family = self.cfg.family
+        if family in ("dense", "moe", "vlm"):
+            return tfm.DecoderCaches(kv=kv_ax)
+        if family == "encdec":
+            e = (None, "cache_batch", None, "cache_heads", None)
+            return encdec.EncDecCaches(kv=kv_ax, enc_k=e, enc_v=e)
+        if family == "hybrid":
+            ssm_ax = SSMState(
+                h=(None, None, "cache_batch", "ssm_heads", None, None),
+                conv=(None, None, "cache_batch", None, "ssm_inner"))
+            return hybrid.HybridCaches(ssm=ssm_ax, kv=kv_ax)
+        m_ax = MLSTMState(C=(None, "cache_batch", "heads", None, None),
+                          n=(None, "cache_batch", "heads", None),
+                          m=(None, "cache_batch", "heads"))
+        s_ax = SLSTMState(c=(None, "cache_batch", "embed_tp"),
+                          n=(None, "cache_batch", "embed_tp"),
+                          m=(None, "cache_batch", "embed_tp"),
+                          h=(None, "cache_batch", "embed_tp"))
+        return xlstm_model.XLSTMCaches(m=m_ax, s=s_ax)
+
+    def input_specs(self, shape: ShapeConfig) -> Tuple[Dict[str, Any],
+                                                       Dict[str, Any]]:
+        """(meta stand-ins, logical axes) of every input of a (train,
+        prefill or decode) step at ``shape``: tokens and labels, each
+        family's extras, and for decode one token, the caches of a
+        ``seq_len`` context and the position."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        act = cdt(cfg)
+
+        def sds(dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device=META)
+
+        specs: Dict[str, Any] = {}
+        axes: Dict[str, Any] = {}
+        if shape.kind in ("train", "prefill"):
+            specs["tokens"] = sds((B, S))
+            axes["tokens"] = ("batch", None)
+            if shape.kind == "train":
+                specs["labels"] = sds((B, S))
+                axes["labels"] = ("batch", None)
+            if cfg.family == "encdec":
+                specs["frames"] = sds((B, cfg.enc_seq, cfg.d_model), act)
+                axes["frames"] = ("batch", None, None)
+            if cfg.family == "vlm":
+                specs["patch_embeds"] = sds((B, cfg.n_patches, cfg.d_model),
+                                            act)
+                axes["patch_embeds"] = ("batch", None, None)
+                if shape.kind == "train":
+                    specs["positions"] = sds((B, S, 3))
+                    axes["positions"] = ("batch", None, None)
+            return specs, axes
+        specs["tokens"] = sds((B, 1))
+        axes["tokens"] = ("batch", None)
+        specs["caches"] = Model(cfg, META).init_caches(B, S)
+        axes["caches"] = self.cache_axes()
+        specs["index"] = sds(())
+        axes["index"] = ()
+        return specs, axes
 
     def splice_cache(self, caches, cache_one, slot: int):
         """Write a batch-1 request cache into batch row ``slot`` of

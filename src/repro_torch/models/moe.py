@@ -36,6 +36,10 @@ class MoE(nn.Module):
             self.wg = param(dense_init((E, D, F), g, device, fan_in=D))
         self.wu = param(dense_init((E, D, F), g, device, fan_in=D))
         self.wd = param(dense_init((E, F, D), g, device, fan_in=F))
+        ew = ("experts", "embed", "expert_mlp")
+        self.logical_axes = {"router": ("embed_tp", None), "wg": ew,
+                             "wu": ew,
+                             "wd": ("experts", "expert_mlp", "embed")}
 
     def forward(self, x: torch.Tensor):
         return apply_moe(self, self.cfg, x)

@@ -77,6 +77,12 @@ class Mamba2Mixer(nn.Module):
         self.D = param(ones_init((H,), device))
         self.norm_scale = param(ones_init((I,), device))
         self.out_proj = param(dense_init((I, D), g, device, fan_in=I))
+        self.logical_axes = {
+            "in_proj": ("embed", "ssm_inner"),
+            "conv_w": ("conv", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "D": ("ssm_heads",), "norm_scale": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
 
     def _in(self, x: torch.Tensor):
         """Input projection split into z, the conv channels and raw dt."""

@@ -77,6 +77,11 @@ class MLSTM(nn.Module):
         self.bif = param(bif)
         self.wo = param(dense_init((D, D), g, device))
         self.wout = param(dense_init((D, D), g, device))
+        hx = ("embed", "heads", None)
+        self.logical_axes = {"wq": hx, "wk": hx, "wv": hx, "wif": hx,
+                             "bif": ("heads", None),
+                             "wo": ("embed", "embed_tp"),
+                             "wout": ("embed_tp", "embed")}
 
     def forward(self, x: torch.Tensor,
                 state: Optional[MLSTMState] = None):
@@ -159,6 +164,9 @@ class SLSTM(nn.Module):
         b[2 * D:3 * D] = 3.0
         self.b = param(b)
         self.wout = param(dense_init((D, D), g, device))
+        self.logical_axes = {"wx": ("embed", "embed_tp"),
+                             "wh": ("embed", "embed_tp"), "b": ("embed_tp",),
+                             "wout": ("embed_tp", "embed")}
 
     def forward(self, x: torch.Tensor,
                 state: Optional[SLSTMState] = None):

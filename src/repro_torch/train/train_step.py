@@ -8,8 +8,8 @@ grad_norm``).  The reference's step is a pure function for ``jax.jit``;
 this one updates the state's parameters and moments in place (see
 ``optim.adamw_update``) and returns the state with the new step count.
 Gradients come from torch's autograd through the model, whose two
-kernels have backward kernels of their own.  The sharding axes of the
-state (``state_axes``) wait for the LM sharding rules (ROADMAP.md).
+kernels have backward kernels of their own.  ``state_axes`` gives the
+state's logical axes for the sharding rules (``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -69,6 +69,16 @@ def decay_mask(params: nn.Module) -> Dict[str, float]:
     lead = {n: k for n, k, _ in _stacked(params)}
     return {n: float(p.dim() + lead.get(n, 0) >= 2)
             for n, p in params.named_parameters()}
+
+
+def state_axes(param_axes, compress: bool = False) -> TrainState:
+    """Logical axes of the whole TrainState: the moments (and the
+    error-feedback residual, with compression) mirror the parameters,
+    the step count is a scalar."""
+    ef = comp.EFState(residual=param_axes) if compress else None
+    return TrainState(params=param_axes,
+                      opt=OptState(step=(), mu=param_axes, nu=param_axes),
+                      ef=ef)
 
 
 def train_state_init(model: Model, seed, opt_cfg: AdamWConfig,

@@ -893,3 +893,71 @@ def test_smoke_family_train_steps_on_gpu_match_cpu(gpu, arch):
                          states[1][1].params.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,
                                    atol=1e-4, msg=n)
+
+
+def test_pipeline_schedule_on_gpu_is_gpipe(gpu):
+    """The host's tick loop drives the card's stage streams: tick t runs
+    microbatch t - s on stage s, over M + S - 1 ticks, and the result
+    comes back on the first stage's device."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    calls = []
+
+    def stage_fn(s, h):
+        calls.append((s, int(h[0, 0])))
+        return h + 0
+
+    mesh = make_debug_mesh(3, ("stage",), device="cuda:0")
+    x = torch.arange(5.0)[:, None, None].expand(5, 1, 2).clone()
+    y = pipeline_apply(stage_fn, mesh, n_microbatches=5)([0, 1, 2], x)
+    assert y.device.type == "cuda" and torch.equal(y.cpu(), x)
+    assert calls == [(s, t - s) for t in range(5 + 3 - 1) for s in range(3)
+                     if 0 <= t - s < 5]
+
+
+def test_pipelined_llama_cut_on_gpu_matches_host(gpu):
+    """llama3.2-1b at full width cut to 2 layers, f32, TF32 off: 2 stages
+    of one decoder layer on cuda:0 (each on a stream of its own), 4
+    microbatches of (1, 256) tokens' embeddings, against the same
+    pipeline on the host at 1e-3 and against the card's own trunk run
+    microbatch by microbatch bit for bit; one flash launch a layer a
+    microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+    from repro_torch.parallel.pipeline import pipeline_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b").replace(n_layers=2, dtype="float32")
+    pg = make_model(cfg, device=gpu).init(0)
+    pc = make_model(cfg, device="cpu").init(1)
+    pc.load_state_dict({k: v.cpu() for k, v in pg.state_dict().items()})
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 256)))
+    outs = {}
+    for side, params, mesh in (
+            ("card", pg, make_debug_mesh(2, ("stage",), device="cuda:0")),
+            ("host", pc, make_debug_mesh(2, ("stage",), device="cpu"))):
+        dev = mesh.flat()[0]
+        pos = torch.arange(256, dtype=torch.int32, device=dev)[None]
+
+        def stage_fn(layer, h, pos=pos):
+            return layer(h, pos)[0]
+
+        with torch.no_grad():
+            x = L.embed_tokens(params.embed, cfg, tokens.to(dev))[:, None]
+            fo.attention.launches = 0
+            y = pipeline_apply(stage_fn, mesh, n_microbatches=4)(
+                list(params.layers), x)
+            launches = fo.attention.launches
+            seq = torch.stack([stage_fn(params.layers[1],
+                                        stage_fn(params.layers[0], x[m]))
+                               for m in range(4)])
+        outs[side] = (y, seq, launches)
+    y, seq, launches = outs["card"]
+    assert launches == 2 * 4
+    assert torch.equal(y, seq)
+    np.testing.assert_allclose(y.cpu().numpy(), outs["host"][0].numpy(),
+                               rtol=1e-3, atol=1e-3)
+    assert torch.equal(outs["host"][0], outs["host"][1])
