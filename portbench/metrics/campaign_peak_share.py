@@ -1,0 +1,8 @@
+"""The least time an H100 needs for a campaign's sweep work (``peaks``,
+from the reference's executed lane-steps) as a share of the campaign's
+wall time, in percent."""
+
+
+def read(r):
+    wall = sum(r.wall_s)
+    return 100.0 * sum(r.least_s) / wall if wall > 0 else None

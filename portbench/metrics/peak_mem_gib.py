@@ -1,0 +1,6 @@
+"""Peak device memory of the traced window (``max_memory_allocated``
+after ``reset_peak_memory_stats``), in GiB."""
+
+
+def read(r):
+    return r.peak_bytes / 2**30 if r.peak_bytes > 0 else None

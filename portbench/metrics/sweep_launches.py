@@ -1,0 +1,7 @@
+"""Sweep kernel launches a campaign (the program's counter
+``sweep_engine.launches``): one a chunk of each bucket, each followed by
+a host read of the lanes' done flags."""
+
+
+def read(r):
+    return sum(r.launches) / r.campaigns if r.campaigns else None
