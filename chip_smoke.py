@@ -318,9 +318,12 @@ def _device_us(e) -> float:
 
 def _profiled_kernels(fn) -> list:
     """torch.profiler's rows of the device kernels of one ``fn()`` (after
-    one call that warms it up)."""
+    one call that warms it up).  The program's own ranges (``repro_torch.``
+    spans) also show on the card's timeline; they are not kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.spans import PREFIX
 
     fn()
     torch.cuda.synchronize()
@@ -329,7 +332,8 @@ def _profiled_kernels(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if _device_us(e) > 0
-            and "cuda" in str(e.device_type).lower()]
+            and "cuda" in str(e.device_type).lower()
+            and not e.key.startswith(PREFIX)]
 
 
 def kernel_launches(fn) -> int:

@@ -49,6 +49,8 @@ from typing import NamedTuple, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import spans
+
 # Mirrors ``core.dse.SweepResult._fields`` (kept literal to avoid an
 # import cycle: core.dse imports this module for the ``reduce=`` API).
 RESULT_FIELDS: Tuple[str, ...] = (
@@ -358,8 +360,13 @@ def fold_segments(spec: Reduction, part: ReducedResult, seg_of,
 def _as_numpy(r: ReducedResult) -> ReducedResult:
     """Host numpy copy of a result whose fields may be tensors on any
     device."""
-    return ReducedResult(*(x.cpu().numpy() if isinstance(x, torch.Tensor)
-                           else np.asarray(x) for x in r))
+    if not any(isinstance(x, torch.Tensor) for x in r):
+        return ReducedResult(*(np.asarray(x) for x in r))
+    with spans.span("reduce.to_host"):
+        spans.count("host_syncs", sum(isinstance(x, torch.Tensor)
+                                      and x.is_cuda for x in r))
+        return ReducedResult(*(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                               else np.asarray(x) for x in r))
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,9 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import spans
 from ..analysis import pareto as _pareto
-from ..device import DeviceLike, as_int32, resolve_device
+from ..device import DeviceLike, as_int32, resolve_device, to_device
 from ..kernels.cgra_sweep.ops import sweep_engine, sweep_shards
 from ..kernels.cgra_sweep.ref import LaneState, SweepTables, init_lanes
 from ..parallel.sharding import (Mesh, flat_shards, mesh_device, pad_batch,
@@ -78,14 +79,16 @@ class SweepResult(NamedTuple):
 def sweep_tables(batch: ProgramBatch, profile: Profile,
                  device: torch.device) -> SweepTables:
     """Device operands of a packed batch and its profile."""
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
-    return SweepTables(
-        tab=torch.as_tensor(fused_rows(batch_tables(batch)), device=device),
-        plen=as_int32(batch.n_instrs, device), t_max=batch.t_max,
-        p_dec=f32(profile.p_dec), p_act=f32(profile.p_act),
-        e_src=f32(profile.e_src), p_idle=float(profile.p_idle),
-        e_sw_op=float(profile.e_sw_op), e_sw_mux=float(profile.e_sw_mux),
-        mulzero=float(profile.mulzero))
+    f32 = lambda x: to_device(np.asarray(x, np.float32), device)
+    with spans.span("dse.plan.tables"):
+        return SweepTables(
+            tab=to_device(fused_rows(batch_tables(batch)), device),
+            plen=as_int32(batch.n_instrs, device), t_max=batch.t_max,
+            p_dec=f32(profile.p_dec), p_act=f32(profile.p_act),
+            e_src=f32(profile.e_src), p_idle=float(profile.p_idle),
+            e_sw_op=float(profile.e_sw_op),
+            e_sw_mux=float(profile.e_sw_mux),
+            mulzero=float(profile.mulzero))
 
 
 def lane_results(st: LaneState, profile: Profile) -> SweepResult:
@@ -143,8 +146,9 @@ def _with_reduce(fn, reduce: _pareto.Reduction, n_programs: int,
     def rfn(*args):
         *head, prog_idx, lane_idx = args
         res = fn(*head, prog_idx)
-        return red(tuple(res), as_int32(prog_idx, device),
-                   as_int32(lane_idx, device))
+        with spans.span("reduce.device", device=device):
+            return red(tuple(res), as_int32(prog_idx, device),
+                       as_int32(lane_idx, device))
 
     return rfn
 
@@ -236,7 +240,7 @@ def plan_grid(program: Optional[Programs] = None,
     n_banks_req = max(int(c.n_banks) for c in hw_configs)
     max_banks = scoreboard_bound(max(n_banks_req, DEFAULT_MAX_BANKS))
     hw_grid = stack_configs(list(hw_configs)).map(
-        lambda x: x.to(dev).repeat_interleave(D).repeat(G))
+        lambda x: to_device(x, dev).repeat_interleave(D).repeat(G))
     img_idx = np.tile(np.arange(D, dtype=np.int32), G * H)
     prog_idx = np.repeat(np.arange(G, dtype=np.int32), H * D)
     return GridPlan(batch, images, img_idx, prog_idx, hw_grid, max_banks)
@@ -282,6 +286,8 @@ def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
 def _host_rows(x, dtype) -> np.ndarray:
     """A lane row (tensor or array) as host numpy of ``dtype``."""
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            spans.count("host_syncs")
         x = x.cpu().numpy()
     return np.asarray(x, dtype)
 
@@ -338,8 +344,9 @@ class MeshGrid:
             lane = pad_batch(_host_rows(lane, np.int32), Bp, fill=-1)
         shards = []
         for d, lo, hi in flat_shards(Bp, self.mesh):
-            shards.append((d, torch.as_tensor(idx[lo:hi], device=d),
-                           hw.map(lambda v: v[lo:hi].to(d).contiguous()),
+            shards.append((d, to_device(idx[lo:hi], d),
+                           hw.map(lambda v: to_device(v[lo:hi], d)
+                                  .contiguous()),
                            as_int32(gi[lo:hi], d),
                            None if lane is None else as_int32(lane[lo:hi], d)))
         return B, shards
@@ -359,9 +366,13 @@ class MeshGrid:
                                zip(self.shard_launches, counts)]
         results = [lane_results(job[3], self.profile) for job in jobs]
         if self.reduce is not None:
-            parts = [_pareto._as_numpy(self.reducer(tuple(res), gi, lane))
-                     for res, (_, _, _, gi, lane) in zip(results, shards)]
-            return _pareto.merge_reduced(self.reduce, parts)
+            parts = []
+            for res, (d, _, _, gi, lane) in zip(results, shards):
+                with spans.span("reduce.device", device=d):
+                    part = self.reducer(tuple(res), gi, lane)
+                parts.append(_pareto._as_numpy(part))
+            with spans.span("reduce.merge"):
+                return _pareto.merge_reduced(self.reduce, parts)
         return SweepResult(*(
             torch.cat([f.to(self.first) for f in field])[:B]
             for field in zip(*results)))
@@ -504,56 +515,63 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
     With ``mesh`` each bucket's lanes split over the mesh's entries, one
     bucket after another: the images are placed on each distinct device
     once and each bucket's shard operands once (``MeshGrid.place``)."""
-    dev = (resolve_device(device) if mesh is None
-           else mesh_device(mesh, device))
-    batch = as_program_batch(programs)
-    images = as_int32(mem_images, dev)
-    G, block = batch.n_programs, len(hw_configs) * images.shape[0]
-    cfg = _resolve_knobs(batch, hw_configs, images, dev,
-                         chunk_steps=chunk_steps, blk_b=blk_b,
-                         max_buckets=max_buckets, autotune=autotune,
-                         profile=profile, max_steps=max_steps,
-                         mem_size=mem_size, mesh=mesh)
-    buckets = bucket_programs([batch.program(g) for g in range(G)],
-                              cfg.max_buckets if G > 1 else 1,
-                              observed_steps=observed_steps)
-    placed_images = (None if mesh is None else
-                     {d: images.to(d) for d in mesh.distinct()})
-    bucket_fns, grids = [], []
-    for group, b in zip(buckets.groups, buckets.batches):
-        plan = plan_grid(b, hw_configs, images, device=dev)
-        lane = None if reduce is None else np.concatenate(
-            [np.arange(g * block, (g + 1) * block, dtype=np.int32)
-             for g in group])
-        knobs = dict(max_steps=max_steps, mem_size=mem_size,
-                     chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b,
-                     reduce=reduce)
-        if mesh is not None:
-            grid = MeshGrid(plan, profile, mesh, images=placed_images,
-                            **knobs)
-            grids.append(grid)
-            placed = grid.place(plan.img_idx, plan.hw_grid, plan.prog_idx,
-                                lane)
-            bucket_fns.append((lambda grid=grid, placed=placed:
-                               grid.run(placed)))
-            continue
-        args = [as_int32(plan.img_idx, dev), plan.hw_grid,
-                as_int32(plan.prog_idx, dev)]
-        if lane is not None:
-            args.append(torch.as_tensor(lane, device=dev))
-        f = make_grid_fn(plan, profile, **knobs)
-        bucket_fns.append(lambda f=f, args=tuple(args): f(*args))
+    with spans.span("dse.plan"):
+        dev = (resolve_device(device) if mesh is None
+               else mesh_device(mesh, device))
+        batch = as_program_batch(programs)
+        images = as_int32(mem_images, dev)
+        G, block = batch.n_programs, len(hw_configs) * images.shape[0]
+        with spans.span("dse.plan.knobs"):
+            cfg = _resolve_knobs(batch, hw_configs, images, dev,
+                                 chunk_steps=chunk_steps, blk_b=blk_b,
+                                 max_buckets=max_buckets, autotune=autotune,
+                                 profile=profile, max_steps=max_steps,
+                                 mem_size=mem_size, mesh=mesh)
+        buckets = bucket_programs([batch.program(g) for g in range(G)],
+                                  cfg.max_buckets if G > 1 else 1,
+                                  observed_steps=observed_steps)
+        placed_images = (None if mesh is None else
+                         {d: images.to(d) for d in mesh.distinct()})
+        bucket_fns, grids = [], []
+        for group, b in zip(buckets.groups, buckets.batches):
+            with spans.span("dse.plan.grid"):
+                plan = plan_grid(b, hw_configs, images, device=dev)
+                lane = None if reduce is None else np.concatenate(
+                    [np.arange(g * block, (g + 1) * block, dtype=np.int32)
+                     for g in group])
+                knobs = dict(max_steps=max_steps, mem_size=mem_size,
+                             chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b,
+                             reduce=reduce)
+                if mesh is not None:
+                    grid = MeshGrid(plan, profile, mesh,
+                                    images=placed_images, **knobs)
+                    grids.append(grid)
+                    placed = grid.place(plan.img_idx, plan.hw_grid,
+                                        plan.prog_idx, lane)
+                    bucket_fns.append((lambda grid=grid, placed=placed:
+                                       grid.run(placed)))
+                    continue
+                args = [as_int32(plan.img_idx, dev), plan.hw_grid,
+                        as_int32(plan.prog_idx, dev)]
+                if lane is not None:
+                    args.append(to_device(lane, dev))
+                f = make_grid_fn(plan, profile, **knobs)
+                bucket_fns.append(lambda f=f, args=tuple(args): f(*args))
 
     if reduce is not None:
         def fn() -> _pareto.ReducedResult:
-            placed = [_pareto.remap_segments(
-                _pareto._as_numpy(run()), group, np.zeros(len(group)), G)
-                for group, run in zip(buckets.groups, bucket_fns)]
-            return _pareto.merge_reduced(reduce, placed)
+            with spans.span("dse.run"):
+                parts = [_pareto._as_numpy(run()) for run in bucket_fns]
+                with spans.span("reduce.merge"):
+                    return _pareto.merge_reduced(reduce, [
+                        _pareto.remap_segments(part, group,
+                                               np.zeros(len(group)), G)
+                        for group, part in zip(buckets.groups, parts)])
     else:
         def fn() -> SweepResult:
-            return _scatter([run() for run in bucket_fns],
-                            buckets.groups, block, G, dev)
+            with spans.span("dse.run"):
+                return _scatter([run() for run in bucket_fns],
+                                buckets.groups, block, G, dev)
 
     fn.buckets = buckets
     fn.cfg = cfg

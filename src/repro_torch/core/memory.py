@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from .hwconfig import BUS_N_TO_M, HwConfig
 
 # The reference's engines keep a bank table of a static width, so its
@@ -48,6 +49,8 @@ def scoreboard_bound(n_banks_required: int) -> int:
 
 def validate_bank_bound(n_banks, max_banks: int, where: str = "") -> None:
     """Raise if any configured n_banks exceeds the scoreboard bound."""
+    if isinstance(n_banks, torch.Tensor) and n_banks.is_cuda:
+        spans.count("host_syncs")
     nb = int(torch.as_tensor(n_banks).max())
     if nb > max_banks:
         raise AssertionError(

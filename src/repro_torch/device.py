@@ -5,6 +5,8 @@ from typing import Union
 
 import torch
 
+from . import spans
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -25,6 +27,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """Tensor of ``x`` on ``device`` (no copy if it is one).  A copy from
+    host memory to a CUDA device waits for the device's stream: it counts
+    as a host sync (``spans``)."""
+    if (isinstance(device, torch.device) and device.type == "cuda"
+            and not (isinstance(x, torch.Tensor) and x.is_cuda)):
+        spans.count("host_syncs")
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def as_int32(x, device: torch.device) -> torch.Tensor:
     """Tensor view of ``x`` as int32 on ``device`` (no copy if it is one)."""
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
+    return to_device(x, device, torch.int32)

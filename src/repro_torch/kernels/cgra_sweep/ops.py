@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ... import spans
 from ...core import isa
 from ...core.hwconfig import HwConfig
 from ...core.program import N_ROW_FIELDS
@@ -137,14 +139,28 @@ def _launch_rounds(shards: Sequence[Shard], *, rows: int, cols: int,
     counts = [0] * len(shards)
     live = list(range(len(shards)))
     t0 = 0
-    while t0 < max_steps:
-        live = [i for i in live if not bool(shards[i][3].done.all())]
-        if not live:
-            break
-        for i in live:
-            launchers[i](t0)
-            counts[i] += 1
-        t0 += K
+    rec = spans.recording()
+    with spans.span("sweep.chunk_loop"):
+        while t0 < max_steps:
+            reads = len(live)
+            live = [i for i in live if not bool(shards[i][3].done.all())]
+            if rec:
+                t_read = time.perf_counter()
+                spans.count("host_syncs", reads)
+            if not live:
+                break
+            for i in live:
+                launchers[i](t0)
+                counts[i] += 1
+            if rec:
+                spans.add_seconds("sweep.turnaround",
+                                  time.perf_counter() - t_read)
+                spans.count("sweep.lane_slots", min(K, max_steps - t0) * sum(
+                    shards[i][3].done.shape[0] for i in live))
+            t0 += K
+        if rec:
+            for sh in shards:
+                spans.keep_lane_steps(sh[3].n_exec)
     return counts
 
 
