@@ -51,7 +51,7 @@ import torch
 
 from .. import spans
 from ..analysis import pareto as _pareto
-from ..device import DeviceLike, as_int32, resolve_device, to_device
+from ..device import DeviceLike, as_int32, resolve_device, to_device, upload
 from ..kernels.cgra_sweep.ops import sweep_engine, sweep_shards
 from ..kernels.cgra_sweep.ref import LaneState, SweepTables, init_lanes
 from ..parallel.sharding import (Mesh, flat_shards, mesh_device, pad_batch,
@@ -59,7 +59,7 @@ from ..parallel.sharding import (Mesh, flat_shards, mesh_device, pad_batch,
 from .autotune import (AUTO, ShapeClass, TunedConfig, autotune_enabled,
                        default_cache, tune_sweep)
 from .characterization import Profile
-from .hwconfig import HwConfig, stack_configs
+from .hwconfig import FLOAT_FIELDS, HwConfig, hw_table
 from .memory import (DEFAULT_MAX_BANKS, scoreboard_bound,
                      validate_bank_bound)
 from .program import (MappingSet, Program, ProgramBatch, as_program_batch,
@@ -227,23 +227,53 @@ def plan_grid(program: Optional[Programs] = None,
               = None, device: DeviceLike = None) -> GridPlan:
     """Flatten the grid to ``B = G*H*D`` index rows without tiling any
     image or table."""
-    dev = resolve_device(device)
     if programs is not None:
         if program is not None:
             raise TypeError("plan_grid(): pass either program or "
                             "programs=, not both")
         program = list(programs)
-    batch = as_program_batch(program)
+    return _plan_lanes(as_program_batch(program), hw_configs, mem_images,
+                       resolve_device(device))[0]
+
+
+def _plan_lanes(batch: ProgramBatch, hw_configs: Sequence[HwConfig],
+                mem_images, dev: torch.device, group=None):
+    """``(plan, lanes)``: the grid plan and the rows a grid fn takes for
+    every lane, ``[img_idx, prog_idx]`` and with ``group`` (the batch's
+    canonical program ids) ``lane_idx``, all int32 on ``dev``.
+
+    The hardware table and ``group`` reach the device in one copy the
+    host does not wait for (``device.upload``); every (B,) row of lane
+    ``(g*H + h)*D + d`` is then built there: the fields by broadcasting
+    the table over the (G, H, D) grid (config ``h = lane // D % H``),
+    the index rows from ``arange(B)`` (``d = lane % D``, ``g = lane //
+    (H*D)``, canonical index ``group[g]*H*D + lane % (H*D)``)."""
     G, H = batch.n_programs, len(hw_configs)
     images = as_int32(mem_images, dev)
     D = images.shape[0]
-    n_banks_req = max(int(c.n_banks) for c in hw_configs)
+    B = G * H * D
+    table = hw_table(hw_configs)
+    n_banks_req = int(table[HwConfig.FIELDS.index("n_banks")].max())
     max_banks = scoreboard_bound(max(n_banks_req, DEFAULT_MAX_BANKS))
-    hw_grid = stack_configs(list(hw_configs)).map(
-        lambda x: to_device(x, dev).repeat_interleave(D).repeat(G))
+    host = table.ravel()
+    if group is not None:
+        host = np.concatenate([host, np.asarray(group, np.int32)])
+    dtab = upload(host, dev)
+    n = len(table)
+    rows = dtab[:table.size].view(n, 1, H, 1).expand(n, G, H, D).reshape(
+        n, B)
+    hw_grid = HwConfig(**{f: rows[i].view(torch.float32)
+                          if f in FLOAT_FIELDS else rows[i]
+                          for i, f in enumerate(HwConfig.FIELDS)})
     img_idx = np.tile(np.arange(D, dtype=np.int32), G * H)
     prog_idx = np.repeat(np.arange(G, dtype=np.int32), H * D)
-    return GridPlan(batch, images, img_idx, prog_idx, hw_grid, max_banks)
+    plan = GridPlan(batch, images, img_idx, prog_idx, hw_grid, max_banks)
+    lane = torch.arange(B, dtype=torch.int32, device=dev)
+    lanes = [lane % D, lane // (H * D)]
+    if group is not None:
+        lanes.append(dtab[table.size:].index_select(0, lanes[1]) * (H * D)
+                     + lane % (H * D))
+    return plan, lanes
 
 
 def make_grid_fn(plan: GridPlan, profile: Profile, *, max_steps: int = 2048,
@@ -535,10 +565,9 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
         bucket_fns, grids = [], []
         for group, b in zip(buckets.groups, buckets.batches):
             with spans.span("dse.plan.grid"):
-                plan = plan_grid(b, hw_configs, images, device=dev)
-                lane = None if reduce is None else np.concatenate(
-                    [np.arange(g * block, (g + 1) * block, dtype=np.int32)
-                     for g in group])
+                plan, lanes = _plan_lanes(
+                    b, hw_configs, images, dev,
+                    group=None if reduce is None or mesh else group)
                 knobs = dict(max_steps=max_steps, mem_size=mem_size,
                              chunk_steps=cfg.chunk_steps, blk_b=cfg.blk_b,
                              reduce=reduce)
@@ -546,17 +575,19 @@ def make_bucketed_sweep_fn(programs: Programs, profile: Profile,
                     grid = MeshGrid(plan, profile, mesh,
                                     images=placed_images, **knobs)
                     grids.append(grid)
+                    lane = None if reduce is None else np.concatenate(
+                        [np.arange(g * block, (g + 1) * block,
+                                   dtype=np.int32) for g in group])
                     placed = grid.place(plan.img_idx, plan.hw_grid,
                                         plan.prog_idx, lane)
                     bucket_fns.append((lambda grid=grid, placed=placed:
                                        grid.run(placed)))
                     continue
-                args = [as_int32(plan.img_idx, dev), plan.hw_grid,
-                        as_int32(plan.prog_idx, dev)]
-                if lane is not None:
-                    args.append(to_device(lane, dev))
+                img_idx, prog_idx, *lane = lanes
                 f = make_grid_fn(plan, profile, **knobs)
-                bucket_fns.append(lambda f=f, args=tuple(args): f(*args))
+                bucket_fns.append(lambda f=f, args=(img_idx, plan.hw_grid,
+                                                    prog_idx, *lane):
+                                  f(*args))
 
     if reduce is not None:
         def fn() -> _pareto.ReducedResult:

@@ -7,13 +7,15 @@ placement, accelerated multiplier) without any RTL rebuild.
 ``HwConfig`` is a dataclass of tensors: 0-d for one configuration,
 ``(H,)`` for a stacked batch (``stack_configs``).  ``smul_power_scale``
 and ``t_clk_ns`` are float32; every other field is int32, as in the
-reference.
+reference.  ``hw_table`` reads H configurations into one host table, so
+a batch is built without a tensor operation per configuration or field.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Sequence
 
+import numpy as np
 import torch
 
 # Bus types.
@@ -26,7 +28,7 @@ FLOAT_FIELDS = ("smul_power_scale", "t_clk_ns")
 def _field_tensor(name: str, value) -> torch.Tensor:
     dtype = torch.float32 if name in FLOAT_FIELDS else torch.int32
     if isinstance(value, torch.Tensor):
-        return value.to(dtype)
+        return value if value.dtype == dtype else value.to(dtype)
     return torch.as_tensor(value, dtype=dtype)
 
 
@@ -76,6 +78,22 @@ class HwConfig:
         """Apply ``fn`` to every field (e.g. index or repeat a batch)."""
         return HwConfig(**{f: fn(v) for f, v in self.as_dict().items()})
 
+    def host_row(self) -> np.ndarray:
+        """The configuration's 8 values as one (8,) int32 host row in
+        ``FIELDS`` order, each float32 field as its bit pattern.  Read
+        once and kept: the dataclass is frozen, so its tensors are not
+        to be changed in place."""
+        row = self.__dict__.get("_host_row")
+        if row is None:
+            vals = [getattr(self, f).detach().cpu().numpy().reshape(-1)
+                    for f in self.FIELDS]
+            if any(v.size != 1 for v in vals):
+                raise ValueError("a host row needs one value a field, got "
+                                 f"{[v.size for v in vals]}")
+            row = np.concatenate([v.view(np.int32) for v in vals])
+            object.__setattr__(self, "_host_row", row)
+        return row
+
 
 # --------------------------------------------------------------------------
 # The paper's topologies (Table 2).
@@ -119,8 +137,20 @@ TOPOLOGIES = {
 }
 
 
+def hw_table(configs: Sequence[HwConfig]) -> np.ndarray:
+    """The configurations as one (8, H) int32 host table: row i is field
+    ``HwConfig.FIELDS[i]`` of every configuration, a float32 field as
+    its bit pattern (``.view(np.float32)`` reads it back)."""
+    return np.stack([c.host_row() for c in configs], axis=1)
+
+
 def stack_configs(configs: Sequence[HwConfig]) -> HwConfig:
     """Stack configurations into one batched HwConfig (leading axis)."""
-    return HwConfig(**{f: torch.stack([getattr(c, f).reshape(())
-                                       for c in configs])
-                       for f in HwConfig.FIELDS})
+    table = hw_table(configs)
+    fields = {f: torch.from_numpy(table[i].view(np.float32)
+                                  if f in FLOAT_FIELDS else table[i])
+              for i, f in enumerate(HwConfig.FIELDS)}
+    device = getattr(configs[0], HwConfig.FIELDS[0]).device
+    if device.type != "cpu":
+        fields = {f: v.to(device) for f, v in fields.items()}
+    return HwConfig(**fields)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 from . import spans
@@ -30,7 +31,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
     """Tensor of ``x`` on ``device`` (no copy if it is one).  A copy from
     host memory to a CUDA device waits for the device's stream: it counts
-    as a host sync (``spans``)."""
+    as a host sync (``spans``).  ``upload`` is the copy that does not."""
     if (isinstance(device, torch.device) and device.type == "cuda"
             and not (isinstance(x, torch.Tensor) and x.is_cuda)):
         spans.count("host_syncs")
@@ -40,3 +41,19 @@ def to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
 def as_int32(x, device: torch.device) -> torch.Tensor:
     """Tensor view of ``x`` as int32 on ``device`` (no copy if it is one)."""
     return to_device(x, device, torch.int32)
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` by one copy the host does not wait for.
+
+    On a CUDA device the array goes through pinned host memory and is
+    copied with ``non_blocking=True``: not a host sync, so not counted.
+    PyTorch's pinned allocator records the copy on the stream and keeps
+    the buffer until the copy is done.  On the CPU the tensor shares
+    ``x``'s memory."""
+    host = torch.from_numpy(x)
+    if device.type != "cuda":
+        return host
+    buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    buf.numpy()[...] = x
+    return buf.to(device, non_blocking=True)

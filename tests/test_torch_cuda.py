@@ -237,6 +237,43 @@ def test_sweep_on_four_shard_mesh_equals_unsharded(gpu, prof):
     assert len(grid.shard_launches) == 4 and min(grid.shard_launches) > 0
 
 
+@pytest.mark.parametrize("G,H,D", [(1, 40, 1024), (3, 5, 2)])
+def test_plan_grid_on_gpu_makes_no_blocking_copy(gpu, G, H, D):
+    """``plan_grid`` and a bucket's lane rows are built on the card from
+    one upload that does not wait: under CUDA's sync debug mode "error"
+    nothing raises.  Every per-lane row equals the CPU plan's."""
+    from repro_torch.core.program import as_program_batch
+    progs = [k.program for k in mibench.all_kernels()[:G]]
+    hws = [hwconfig.TOPOLOGIES[TOPOS[h % len(TOPOS)]]().replace(
+        n_banks=(2, 4, 8, 16)[h % 4]) for h in range(H)]
+    images = np.random.default_rng(D).integers(
+        0, 2**31, (D, 64)).astype(np.int32)
+    on_card = torch.as_tensor(images, device=gpu)
+    batch = as_program_batch(progs)
+    group = list(range(G))[::-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = dse.plan_grid(programs=progs, hw_configs=hws,
+                             mem_images=on_card, device=gpu)
+        _, lanes = dse._plan_lanes(batch, hws, on_card, gpu, group=group)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_lanes = dse._plan_lanes(batch, hws, images,
+                                       torch.device("cpu"), group=group)
+    assert plan.max_banks == want.max_banks
+    for f in ("img_idx", "prog_idx"):
+        assert getattr(plan, f).tobytes() == getattr(want, f).tobytes()
+    for f in hwconfig.HwConfig.FIELDS:
+        g, w = getattr(plan.hw_grid, f), getattr(want.hw_grid, f)
+        assert g.device.type == "cuda" and g.dtype == w.dtype, f
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes(), f
+    assert len(lanes) == len(want_lanes) == 3
+    for g, w in zip(lanes, want_lanes):
+        assert g.dtype == w.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
+
+
 def test_auto_sweep_on_gpu_resolves_from_the_cache(gpu, prof, tmp_path,
                                                    monkeypatch):
     """AUTO knobs on the card come from a cache entry for the card's

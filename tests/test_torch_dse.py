@@ -111,23 +111,112 @@ def test_single_program_api(profile):
     np.testing.assert_array_equal(mems, np.repeat(images[:1], 5, axis=0))
 
 
-def test_plan_grid_order_matches_reference():
-    rk, pk = ref_mibench.all_kernels()[:3], mibench.all_kernels()[:3]
-    images = np.stack([k.mem_init for k in rk[:2]])
+def _hw_values(H):
+    """H configs' field values: the Table 2 topologies x ``smul_lat``
+    {1, 3} x ``n_banks`` {2, 4, 8, 16}, as the benchmark's grid, with
+    ``smul_power_scale`` 3.0 and a clock of 12.5 ns on some."""
+    out = []
+    for i in range(H):
+        topo = ref_hw.TOPOLOGIES[TOPOS[i % len(TOPOS)]]()
+        vals = {f: np.asarray(getattr(topo, f)).item()
+                for f in ref_hw.HwConfig.FIELDS}
+        vals.update(smul_lat=(1, 3)[i // 5 % 2],
+                    n_banks=(2, 4, 8, 16)[i // 10 % 4])
+        if i % 3 == 0:
+            vals.update(smul_power_scale=3.0, t_clk_ns=12.5)
+        out.append(vals)
+    return out
+
+
+@pytest.mark.parametrize("G,H,D,source", [(3, 5, 2, "topologies")] + [
+    (G, H, D, source) for G, H, D in [(1, 40, 1024), (3, 5, 2), (4, 1, 7)]
+    for source in ("numbers", "tensors")])
+def test_plan_grid_order_matches_reference(G, H, D, source):
+    """Every row of the plan, built from one hardware table, is the
+    reference's bit for bit: index rows, each field with its dtype, the
+    scoreboard bound.  ``topologies``: the Table 2 configs over MiBench
+    images; else seeded images and ``_hw_values`` configs built from
+    Python numbers or from tensors."""
+    rk, pk = ref_mibench.all_kernels()[:G], mibench.all_kernels()[:G]
+    if source == "topologies":
+        images = np.stack([k.mem_init for k in rk[:D]])
+        vals = [{f: np.asarray(getattr(ref_hw.TOPOLOGIES[t](), f)).item()
+                 for f in ref_hw.HwConfig.FIELDS} for t in TOPOS]
+    else:
+        images = np.random.default_rng(G * H * D).integers(
+            -2**31, 2**31, (D, 16), dtype=np.int64).astype(np.int32)
+        vals = _hw_values(H)
+    if source == "topologies":
+        hws = [hwconfig.TOPOLOGIES[t]() for t in TOPOS]
+    elif source == "tensors":
+        hws = [hwconfig.HwConfig(**{f: torch.tensor(v) for f, v in
+                                    c.items()}) for c in vals]
+    else:
+        hws = [hwconfig.HwConfig(**c) for c in vals]
     want = ref_dse.plan_grid(programs=[k.program for k in rk],
-                             hw_configs=[ref_hw.TOPOLOGIES[t]()
-                                         for t in TOPOS],
+                             hw_configs=[ref_hw.HwConfig(**c)
+                                         for c in vals],
                              mem_images=images)
-    got = dse.plan_grid(programs=[k.program for k in pk],
-                        hw_configs=[hwconfig.TOPOLOGIES[t]() for t in TOPOS],
+    got = dse.plan_grid(programs=[k.program for k in pk], hw_configs=hws,
                         mem_images=images, device="cpu")
-    np.testing.assert_array_equal(got.img_idx, want.img_idx)
-    np.testing.assert_array_equal(got.prog_idx, want.prog_idx)
+    for f in ("img_idx", "prog_idx"):
+        assert getattr(got, f).dtype == np.int32, f
+        assert getattr(got, f).tobytes() == getattr(want, f).tobytes(), f
+    assert got.n_lanes == G * H * D
     assert got.max_banks == want.max_banks
     for f in ref_hw.HwConfig.FIELDS:
-        np.testing.assert_array_equal(getattr(got.hw_grid, f).numpy(),
-                                      np.asarray(getattr(want.hw_grid, f)))
+        g = getattr(got.hw_grid, f).numpy()
+        w = np.asarray(getattr(want.hw_grid, f))
+        assert g.shape == (G * H * D,) and g.dtype == w.dtype, f
+        assert g.tobytes() == w.tobytes(), f
     np.testing.assert_array_equal(got.images.numpy(), images)
+
+
+@pytest.mark.parametrize("reduce", [None, "topk"])
+def test_bucketed_lane_rows_equal_the_numpy_rows(reduce, monkeypatch,
+                                                 profile):
+    """The rows each bucket's grid fn receives, built on the device from
+    ``arange``, equal the plan's numpy rows; with a reducer, the
+    canonical lane index of each lane of the bucket's programs."""
+    from repro_torch.analysis import pareto
+    progs = [m.program for m in conv.all_mappings()]
+    hws = [hwconfig.TOPOLOGIES[t]() for t in TOPOS[:2]]
+    images = np.random.default_rng(3).integers(
+        0, 100, (3, conv.all_mappings()[0].mem_init.shape[0])
+    ).astype(np.int32)
+    seen, real = [], dse.make_grid_fn
+
+    def recording(plan, prof, **kw):
+        f = real(plan, prof, **kw)
+        return lambda *args: seen.append((plan, args)) or f(*args)
+
+    monkeypatch.setattr(dse, "make_grid_fn", recording)
+    fn = dse.make_bucketed_sweep_fn(
+        progs, convert.profile_from_numpy(dataclasses.asdict(profile)), hws,
+        images, max_steps=8, chunk_steps=8, blk_b=32, max_buckets=4,
+        reduce=None if reduce is None else pareto.TopK("edp", 2),
+        device="cpu")
+    fn()
+    assert len(fn.buckets.groups) == len(seen) == 3
+    block = len(hws) * images.shape[0]
+    stacked = hwconfig.stack_configs(hws)
+    for (plan, args), group in zip(seen, fn.buckets.groups):
+        img_idx, hw, prog_idx, *lane = args
+        assert img_idx.dtype == prog_idx.dtype == torch.int32
+        np.testing.assert_array_equal(img_idx.numpy(), plan.img_idx)
+        np.testing.assert_array_equal(prog_idx.numpy(), plan.prog_idx)
+        assert hw is plan.hw_grid
+        for f in hwconfig.HwConfig.FIELDS:
+            want = getattr(stacked, f).repeat_interleave(
+                images.shape[0]).repeat(len(group))
+            assert torch.equal(getattr(hw, f), want), f
+        if reduce is None:
+            assert lane == []
+            continue
+        (lane,) = lane
+        assert lane.dtype == torch.int32
+        np.testing.assert_array_equal(lane.numpy(), np.concatenate(
+            [np.arange(g * block, (g + 1) * block) for g in group]))
 
 
 def test_grid_fn_slice_equals_full_sweep(mibench_grid, profile):
