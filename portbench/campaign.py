@@ -8,6 +8,12 @@ arrays; the hardware grid is the benchmark's.  ``run`` calls
 calls through ``make_bucketed_sweep_fn`` and its ``fn()``, exactly as
 ``sweep`` does, so a traced run can time the plan apart.  Knobs stay
 ``AUTO``.
+
+With ``chips`` > 1 every call runs over a mesh of the first ``chips``
+visible cards (on the host: ``chips`` host shards), passed as ``mesh=``;
+the images are drawn on the first card and the program copies them to
+the others inside the call, as a user's call does.  With one chip no
+``mesh`` is passed.
 """
 from __future__ import annotations
 
@@ -37,13 +43,19 @@ def build_program(spec: dict) -> RefProgram:
 class Campaigns:
     """The calls of one configuration under one mix, set up once."""
 
-    def __init__(self, config: dict, mix: dict, profile, device):
+    def __init__(self, config: dict, mix: dict, profile, device,
+                 chips: int = 1):
         from repro_torch.analysis import pareto
         from repro_torch.core import dse, hwconfig
         from repro_torch.core.program import Program
 
         self.dse, self.pareto = dse, pareto
         self.device = torch.device(device)
+        self.mesh = None
+        if chips > 1:
+            from repro_torch.launch.mesh import make_debug_mesh
+            self.mesh = (make_debug_mesh(chips) if self.device.type == "cuda"
+                         else make_debug_mesh(chips, device=self.device))
         self.profile = profile
         self.mem_size = int(config["mem_size"])
         self.calls = config["calls"]
@@ -75,9 +87,12 @@ class Campaigns:
                 for i, call in enumerate(self.calls)]
 
     def _kw(self, i: int) -> dict:
-        return dict(max_steps=int(self.calls[i]["max_steps"]),
-                    mem_size=self.mem_size, reduce=self.reduce,
-                    device=self.device)
+        kw = dict(max_steps=int(self.calls[i]["max_steps"]),
+                  mem_size=self.mem_size, reduce=self.reduce,
+                  device=self.device)
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
+        return kw
 
     def _to_host(self, res):
         if self.reduce is not None:

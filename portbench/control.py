@@ -4,13 +4,14 @@
         [--control-seeds x,y,z]
 
 For each program seed: ``check.CHECKED`` campaigns of the cell, as a run
-makes them (same images, same sampled lanes), answered by the program
-and compared with the reference: the lower readings.  For each control
-seed: the same campaigns answered by the control -- the plain reference
-put in the program's place and computed in bfloat16, the precision below
-the float32 the configuration states -- and compared the same way: the
-upper readings.  A reduced cell's control reduces its own bfloat16 lanes
-with the plain front or top-k (``reference/front.py``).  One JSON line a
+makes them (same images, same sampled lanes, over the cell's cards),
+answered by the program and compared with the reference: the lower
+readings.  For each control seed: the same campaigns answered by the
+control -- the plain reference put in the program's place and computed
+in bfloat16, the precision below the float32 the configuration states --
+and compared the same way: the upper readings.  A reduced cell's control
+reduces its own bfloat16 lanes with the plain front or top-k
+(``reference/front.py``).  One JSON line a
 seed.  Needs a CUDA device, as a run does.
 """
 from __future__ import annotations
@@ -83,7 +84,7 @@ def readings(cell: _cells.Cell, program_seeds: List[int],
 
     dev = torch.device(device)
     prof = (profile_fn or (lambda d: default_profile(device=d)))(dev)
-    camp = Campaigns(cell.config, cell.mix, prof, dev)
+    camp = Campaigns(cell.config, cell.mix, prof, dev, chips=cell.chips)
     inp = _check_inputs(camp, cell)
     camp.run(camp.images(0, _images.WARMUP, 0))
     campaigns = list(range(check.CHECKED))

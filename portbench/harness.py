@@ -7,6 +7,11 @@ each timed on the host from its first call to its answer on the host.
 ``--trace 1`` profiles ``TRACE_CAMPAIGNS`` campaigns instead and reads
 the per-layer metrics (``metrics/<name>.py``) from that trace, the
 benchmark's spans and the program's counters.
+
+A cell of ``chips`` > 1 cards runs every call over a mesh of the first
+``chips`` visible cards (``campaign.Campaigns``); the harness waits on,
+resets and reads the peak memory of each of them, and the trace reads
+each card (``tracing.Trace``).
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ class Readings:
     launches: List[int]          # sweep kernel launches a campaign
     answer_bytes: List[int]
     least_s: List[float]         # the least time of each campaign's work
+    #                              on the cell's cards
     trace: object                # tracing.Trace
-    peak_bytes: int
+    peak_bytes: int              # the fullest card's
+    chips: int = 1               # the cell's cards
 
     @property
     def campaigns(self) -> int:
@@ -51,7 +58,7 @@ class Readings:
         campaigns' spans."""
         spans = [(s, e) for s, e, name in self.trace.spans
                  if name == "campaign"]
-        return sum(e - s for name, s, e in self.trace.ops if match(name)
+        return sum(e - s for name, s, e, _ in self.trace.ops if match(name)
                    and any(a <= s <= b for a, b in spans)) * 1e-6
 
 
@@ -64,10 +71,19 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def _sync(dev) -> None:
+def _cards(dev, chips: int) -> list:
+    """The cell's cards: the first ``chips`` CUDA devices; none on the
+    host."""
     import torch
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if dev.type != "cuda":
+        return []
+    return [torch.device("cuda", i) for i in range(chips)]
+
+
+def _sync(devices: list) -> None:
+    import torch
+    for d in devices:
+        torch.cuda.synchronize(d)
 
 
 def _check_inputs(camp, cell) -> check.Inputs:
@@ -90,21 +106,22 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
     from repro_torch.kernels.cgra_sweep.ops import sweep_engine
 
     dev = torch.device(device)
+    devices = _cards(dev, cell.chips)
     phases = {"imports": time.perf_counter() - t_start}
     prof = (profile_fn or (lambda d: default_profile(device=d)))(dev)
     phases["profile"] = time.perf_counter() - t_start
-    camp = Campaigns(cell.config, cell.mix, prof, dev)
+    camp = Campaigns(cell.config, cell.mix, prof, dev, chips=cell.chips)
     inp = _check_inputs(camp, cell)
     phases["programs"] = time.perf_counter() - t_start
     for w in range(WARMUP_CAMPAIGNS):
         camp.run(camp.images(seed, _images.WARMUP, w))
-        _sync(dev)
+        _sync(devices)
         phases[f"warm-up {w}"] = time.perf_counter() - t_start
     if trace:
         from . import tracing
         with tracing.profile():            # the profiler's own start-up
             torch.zeros(1, device=dev).add_(1)
-            _sync(dev)
+            _sync(devices)
         readers = readers or _cells.metric_readers(cell)
         phases["profiler"] = time.perf_counter() - t_start
     # the set-up's objects stay alive for the run: the collector need not
@@ -120,7 +137,7 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
     def one(c: int, runner) -> None:
         nonlocal failed
         imgs = camp.images(seed, _images.WINDOW, c)
-        _sync(dev)
+        _sync(devices)
         n0 = sweep_engine.launches
         t0 = time.perf_counter()
         answer = runner(imgs)
@@ -132,8 +149,8 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
         samples[c] = check.sample(inp, seed, c)
         kept[c] = check.keep(inp, answer, samples[c])
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
     parsed = None
     if not trace:
         t_w0 = time.perf_counter()
@@ -158,17 +175,17 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
 
                     one(c, split)
                     plans.append(sum(plan_s))
-                _sync(dev)
-        parsed = tracing.Trace(p, workdir)
+                _sync(devices)
+        parsed = tracing.Trace(p, workdir, cell.chips)
         window_s = parsed.window_s
-    peak = (int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
-            else 0)
+    card_peaks = [int(torch.cuda.max_memory_allocated(d)) for d in devices]
+    peak = max(card_peaks, default=0)
     n = len(walls)
     found = forbidden_modules()
 
     del camp
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()            # every card's cached blocks
     chosen = sorted(kept) if trace else check.checked_campaigns(n, seed)
     res = check.compare(inp, {c: kept[c] for c in chosen},
                         {c: samples[c] for c in chosen}, seed, dev)
@@ -180,7 +197,8 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
            "attempted": points, "failed": failed, "forbidden": found,
            "numbers": numbers, "checked_lanes": res["lanes"],
            "setup_s": setup_s, "window_s": window_s, "campaigns": n,
-           "peak_bytes": peak, "setup_phases": phases,
+           "peak_bytes": peak, "card_peak_bytes": card_peaks,
+           "setup_phases": phases,
            "p50_ms": float(np.median(walls)) * 1e3,
            "front_points": _front_points(kept, inp)}
     if not trace:
@@ -192,13 +210,15 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
     lanes = [len(p) * len(inp.hw) * int(call["images"])
              for p, call in zip(inp.programs, inp.calls)]
     least = [peaks.least_seconds(res["lane_steps"][c], sum(lanes),
-                                 inp.mem_size) for c in range(n)]
+                                 inp.mem_size, chips=cell.chips)
+             for c in range(n)]
     readings = Readings(wall_s=walls, plan_s=plans, launches=launches,
                         answer_bytes=nbytes, least_s=least, trace=parsed,
-                        peak_bytes=peak)
+                        peak_bytes=peak, chips=cell.chips)
     values = {name: read(readings) for name, read in readers.items()}
     out["metrics"] = {k: v for k, v in values.items() if v is not None}
     out["busy_s"] = parsed.busy_s
+    out["card_busy_s"] = parsed.card_busy_s
     out["breakdown"] = {"device_ops": parsed.top_ops(),
                         "idle_gaps": parsed.idle_gaps()}
     return out
@@ -276,6 +296,10 @@ def main(argv: List[str], t_start: float, workdir: Path) -> int:
           + f"), {out['checked_lanes']} lanes checked, largest reduced set "
           f"{out['front_points']}, window campaigns p50 "
           f"{out['p50_ms']:.3f} ms")
+    busy = out.get("card_busy_s") or [None] * cell.chips
+    print("portbench: by card: " + "; ".join(
+        f"cuda:{i} peak {b} bytes" + ("" if s is None else f", busy {s!r} s")
+        for i, (b, s) in enumerate(zip(out["card_peak_bytes"], busy))))
     line = result_line(cell, out, torch.cuda.get_device_name(0),
                        bool(args.trace))
     for k, v in line["check"].items():

@@ -1,6 +1,6 @@
-"""The least time an H100 needs for a campaign's sweep work (``peaks``,
-from the reference's executed lane-steps) as a share of the campaign's
-wall time, in percent."""
+"""The least time the cell's H100s need for a campaign's sweep work
+(``peaks``, from the reference's executed lane-steps, split over the
+cards) as a share of the campaign's wall time, in percent."""
 
 
 def read(r):

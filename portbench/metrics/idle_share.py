@@ -1,5 +1,5 @@
 """Share of the traced window in which the card runs no operation, in
-percent."""
+percent; over several cards, the mean card's."""
 
 
 def read(r):

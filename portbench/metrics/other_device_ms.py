@@ -1,6 +1,6 @@
 """Device milliseconds a campaign of every operation but the sweep
 kernel: lane set-up, the result fields, the scatter, the reducer and the
-copies."""
+copies, summed over the cell's cards."""
 from portbench.harness import is_sweep_kernel
 
 

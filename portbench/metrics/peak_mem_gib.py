@@ -1,5 +1,5 @@
 """Peak device memory of the traced window (``max_memory_allocated``
-after ``reset_peak_memory_stats``), in GiB."""
+after ``reset_peak_memory_stats``) of the fullest card, in GiB."""
 
 
 def read(r):

@@ -1,5 +1,5 @@
 """Device milliseconds of the sweep kernel a campaign, from the
-profiler's trace."""
+profiler's trace, summed over the cell's cards."""
 from portbench.harness import is_sweep_kernel
 
 

@@ -17,9 +17,9 @@ the sum over PEs: 14.  Bytes: each lane's memory image read once and
 written once.
 
 The least time of a sweep is the largest of the int32, the float32 and
-the byte bound.  The executed lane-steps come from the reference's
-``steps_executed`` for the campaign's inputs, never from the program's
-output.
+the byte bound; over several cards, that over their number.  The
+executed lane-steps come from the reference's ``steps_executed`` for the
+campaign's inputs, never from the program's output.
 """
 from __future__ import annotations
 
@@ -32,10 +32,13 @@ I32_OPS_PER_PE_STEP = 31
 F32_OPS_PER_PE_STEP = 14
 
 
-def least_seconds(lane_steps: int, lanes: int, mem_words: int) -> float:
-    """The least time an H100 needs for ``lane_steps`` executed lane-steps
-    over ``lanes`` lanes of ``mem_words``-word images."""
+def least_seconds(lane_steps: int, lanes: int, mem_words: int,
+                  chips: int = 1) -> float:
+    """The least time ``chips`` H100s need for ``lane_steps`` executed
+    lane-steps over ``lanes`` lanes of ``mem_words``-word images: one
+    card's least time over ``chips``, each card doing its share of the
+    work at its own peaks."""
     pe_steps = float(lane_steps) * PES
     return max(pe_steps * I32_OPS_PER_PE_STEP / I32_OPS_PER_S,
                pe_steps * F32_OPS_PER_PE_STEP / F32_OPS_PER_S,
-               2.0 * lanes * mem_words * 4 / HBM_BYTES_PER_S)
+               2.0 * lanes * mem_words * 4 / HBM_BYTES_PER_S) / chips

@@ -1,4 +1,5 @@
-"""The port's benchmark: one run of one cell on one H100.
+"""The port's benchmark: one run of one cell on its H100s (the first
+``chips`` visible cards).
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
