@@ -14,13 +14,19 @@ visible cards (on the host: ``chips`` host shards), passed as ``mesh=``;
 the images are drawn on the first card and the program copies them to
 the others inside the call, as a user's call does.  With one chip no
 ``mesh`` is passed.
+
+A configuration may name its array, ``"rows"`` and ``"cols"`` together;
+without them it is the OpenEdgeCGRA's 4x4.  Every program has to have
+``rows * cols`` PEs.  The shape is passed as ``rows=``/``cols=`` only
+when it is not 4x4, so a 4x4 configuration makes the calls it made
+before configurations named their array.
 """
 from __future__ import annotations
 
 import importlib
 import time
 from contextlib import nullcontext
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,23 @@ from .reference.isa import Program as RefProgram
 
 RESULT_FIELDS = ("latency_cc", "energy_pj", "power_mw", "checksum",
                  "steps_executed")
+ARRAY = (4, 4)     # the OpenEdgeCGRA's, the program's default
+
+
+def array_shape(config: dict) -> Tuple[int, int]:
+    """``(rows, cols)`` of the configuration's array: its ``rows`` and
+    ``cols``, given together as positive integers, or ``ARRAY``."""
+    given = [k for k in ("rows", "cols") if k in config]
+    if not given:
+        return ARRAY
+    shape = tuple(config.get(k) for k in ("rows", "cols"))
+    if len(given) == 1 or not all(
+            type(v) is int and v > 0 for v in shape):
+        raise ValueError(
+            f"configuration {config.get('name')!r}: 'rows' and 'cols' are "
+            f"given together as positive integers; got rows={shape[0]!r}, "
+            f"cols={shape[1]!r}")
+    return shape
 
 
 def build_program(spec: dict) -> RefProgram:
@@ -57,11 +80,18 @@ class Campaigns:
             self.mesh = (make_debug_mesh(chips) if self.device.type == "cuda"
                          else make_debug_mesh(chips, device=self.device))
         self.profile = profile
+        self.rows, self.cols = array_shape(config)
         self.mem_size = int(config["mem_size"])
         self.calls = config["calls"]
         self.ref_programs: List[List[RefProgram]] = [
             [build_program(p) for p in call["programs"]]
             for call in self.calls]
+        for p in (p for progs in self.ref_programs for p in progs):
+            if p.n_pes != self.rows * self.cols:
+                raise ValueError(
+                    f"configuration {config.get('name')!r}: program "
+                    f"{p.name!r} has n_pes={p.n_pes}, not the "
+                    f"{self.rows}x{self.cols} array's {self.rows * self.cols}")
         self.programs = [[Program(*(p.arrays()[f] for f in
                                     ("ops", "dest", "srcA", "srcB", "imm")),
                                   name=p.name) for p in progs]
@@ -92,6 +122,8 @@ class Campaigns:
                   device=self.device)
         if self.mesh is not None:
             kw["mesh"] = self.mesh
+        if (self.rows, self.cols) != ARRAY:
+            kw.update(rows=self.rows, cols=self.cols)
         return kw
 
     def _to_host(self, res):

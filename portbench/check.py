@@ -60,6 +60,8 @@ class Inputs:
     hw: list               # hardware configs (dicts)
     mem_size: int
     reduce: Optional[dict]  # the mix's reduction, or None
+    rows: int = 4           # the configuration's array
+    cols: int = 4
 
 
 def sample(inp: Inputs, seed: int, campaign: int) -> List[np.ndarray]:
@@ -114,6 +116,7 @@ def reference_answers(inp: Inputs, seed: int, wanted: Dict[int, list],
             steps += [int(call["max_steps"])] * len(idx)
             where.append((c, i, len(idx)))
     res = ref_sweep.run_lanes(flat, prog, hw, torch.cat(rows), steps, prof,
+                              rows=inp.rows, cols=inp.cols,
                               energy_dtype=energy_dtype)
     res = {f: v.float().cpu().numpy() if f in ("energy_pj", "power_mw")
            else v.cpu().numpy() for f, v in res.items()}

@@ -32,6 +32,22 @@ def tiny_config() -> dict:
     return cfg
 
 
+def probe_config(rows: int, cols: int) -> dict:
+    """``tiny_config`` on a ``rows`` x ``cols`` array: two seeded probe
+    kernels of ``reference/probe.py`` on eight images under two
+    topologies of several banks and one DMA engine a column."""
+    cfg = tiny_config()
+    cfg.update(name=f"probe{rows}x{cols}", rows=rows, cols=cols,
+               hardware={"topologies": ["b_n_to_m", "c_interleaved"],
+                         "smul_lat": [3], "n_banks": [4]})
+    call = cfg["calls"][0]
+    call["programs"] = [{"module": "probe", "kernel": "probe",
+                         "args": {"rows": rows, "cols": cols, "seed": s}}
+                        for s in (1, 2)]
+    call["max_steps"] = 64
+    return cfg
+
+
 def make_tree(tmp: Path, configs: dict) -> Path:
     """``tmp`` holding BENCHMARK.json and the benchmark's folder, with
     ``configs`` (name -> config dict) added and a cell of each under every

@@ -11,7 +11,8 @@ control -- the plain reference put in the program's place and computed
 in bfloat16, the precision below the float32 the configuration states --
 and compared the same way: the upper readings.  A reduced cell's control
 reduces its own bfloat16 lanes with the plain front or top-k
-(``reference/front.py``).  One JSON line a
+(``reference/front.py``).  Both sides run on the configuration's array
+(``rows`` x ``cols``, 4x4 unless it names another).  One JSON line a
 seed.  Needs a CUDA device, as a run does.
 """
 from __future__ import annotations

@@ -89,7 +89,8 @@ def _sync(devices: list) -> None:
 def _check_inputs(camp, cell) -> check.Inputs:
     return check.Inputs(calls=camp.calls, programs=camp.ref_programs,
                         hw=camp.hw, mem_size=camp.mem_size,
-                        reduce=cell.mix.get("reduce"))
+                        reduce=cell.mix.get("reduce"), rows=camp.rows,
+                        cols=camp.cols)
 
 
 def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
@@ -210,7 +211,8 @@ def run_cell(cell: _cells.Cell, *, seed: int, seconds: float, trace: bool,
     lanes = [len(p) * len(inp.hw) * int(call["images"])
              for p, call in zip(inp.programs, inp.calls)]
     least = [peaks.least_seconds(res["lane_steps"][c], sum(lanes),
-                                 inp.mem_size, chips=cell.chips)
+                                 inp.mem_size, chips=cell.chips,
+                                 pes=inp.rows * inp.cols)
              for c in range(n)]
     readings = Readings(wall_s=walls, plan_s=plans, launches=launches,
                         answer_bytes=nbytes, least_s=least, trace=parsed,

@@ -8,13 +8,25 @@ FP32 lanes; an FMA counts 2 float32 operations, an int32 operation 1, so
 at the same clock the int32 rate is 67e12 / 2 (half the lanes) / 2 (one
 operation a lane-cycle, not two) = 67e12 / 4 operations a second.
 
-Work of one executed CGRA instruction on one PE (a "PE-step"), counted
-from the arithmetic of the plain reference (``reference/sweep.py``):
-int32 -- operand select 2, address 4, store arbitration 8 (half the PEs
-compared), ALU 2, writeback 2, contention 6, latency 2, control 5: 31;
-float32 -- the energy term's 13 multiplies and adds plus its share of
-the sum over PEs: 14.  Bytes: each lane's memory image read once and
-written once.
+Work of one executed CGRA instruction on one PE (a "PE-step") of an
+array of P PEs, counted from the arithmetic of the plain reference
+(``reference/sweep.py``'s ``step``), P = 16 on the 4x4 array:
+
+- int32 (``i32_ops_per_pe_step``) -- operand select 2 (``_operands``, A
+  and B); address 4; store arbitration P // 2 (``_store`` compares each
+  PE's address with every later PE's, P (P - 1) / 2 comparisons an
+  instruction: half the PEs a PE); ALU 2; writeback 2; contention
+  2 + R(P) (``_mem_done``: the request's bank and its DMA engine, then
+  one relaxation of its slot in each of the closure's R(P) =
+  (P - 2).bit_length() max-plus rounds, 4 at P = 16); latency 2;
+  control 5.  At 16 PEs: 2 + 4 + 8 + 2 + 2 + 6 + 2 + 5 = 31.  Like the
+  count it generalises, it leaves out the (P, P) relations the plain
+  version builds to find a PE's rivals, and counts their least work.
+- float32 -- the energy term's 13 multiplies and adds, plus the PE's
+  share of the sum over PEs, (P - 1) / P adds, counted as 1: 14 at any
+  P.
+
+Bytes: each lane's memory image read once and written once.
 
 The least time of a sweep is the largest of the int32, the float32 and
 the byte bound; over several cards, that over their number.  The
@@ -28,17 +40,23 @@ F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = 67e12 / 4
 
 PES = 16
-I32_OPS_PER_PE_STEP = 31
 F32_OPS_PER_PE_STEP = 14
 
 
+def i32_ops_per_pe_step(pes: int) -> int:
+    """int32 operations of one PE-step on an array of ``pes`` PEs (the
+    module's docstring derives each term): 31 at 16."""
+    relax_rounds = max(pes - 2, 0).bit_length()
+    return 2 + 4 + pes // 2 + 2 + 2 + (2 + relax_rounds) + 2 + 5
+
+
 def least_seconds(lane_steps: int, lanes: int, mem_words: int,
-                  chips: int = 1) -> float:
+                  chips: int = 1, pes: int = PES) -> float:
     """The least time ``chips`` H100s need for ``lane_steps`` executed
-    lane-steps over ``lanes`` lanes of ``mem_words``-word images: one
-    card's least time over ``chips``, each card doing its share of the
-    work at its own peaks."""
-    pe_steps = float(lane_steps) * PES
-    return max(pe_steps * I32_OPS_PER_PE_STEP / I32_OPS_PER_S,
+    lane-steps of an array of ``pes`` PEs over ``lanes`` lanes of
+    ``mem_words``-word images: one card's least time over ``chips``, each
+    card doing its share of the work at its own peaks."""
+    pe_steps = float(lane_steps) * pes
+    return max(pe_steps * i32_ops_per_pe_step(pes) / I32_OPS_PER_S,
                pe_steps * F32_OPS_PER_PE_STEP / F32_OPS_PER_S,
                2.0 * lanes * mem_words * 4 / HBM_BYTES_PER_S) / chips

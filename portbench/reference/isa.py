@@ -8,8 +8,8 @@ It imports nothing of the program under test: the benchmark builds its
 programs with it and hands the same arrays to the program and to the
 plain reference (``sweep.py``).
 
-Semantics (OpenEdgeCGRA): a 4x4 torus of PEs sharing one program
-counter; one CGRA instruction is a (op, dest, srcA, srcB, imm) slot per
+Semantics (OpenEdgeCGRA): a torus of PEs (4x4 on the OpenEdgeCGRA,
+``rows`` x ``cols`` in general) sharing one program counter; one CGRA instruction is a (op, dest, srcA, srcB, imm) slot per
 PE; the instruction retires when its slowest PE is done.  When several
 PEs branch in one instruction the lowest-indexed PE wins; stores from
 several PEs to one address land in ascending PE order.

@@ -9,6 +9,10 @@ power waveform), ``src/repro_torch/core/physical.py`` (the physical
 model) and ``src/repro_torch/core/trace.py`` (dense trace, toggles,
 switches), driven by a one-design-point simulator of its own
 (``simulate``) in place of ``core/cgra.run_program``.
+
+The characterization runs its micro-kernels on the 4x4 array, whatever
+array a configuration names: the profile's per-opcode and per-source
+energies are those of one PE, and apply to every PE of any array.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ test.
 
 Each lane carries its own program (index into the packed programs), its
 own hardware config, its own memory image and its own ``max_steps``, so
-the lanes of several sweep calls run in one batch.  ``energy_dtype``
+the lanes of several sweep calls run in one batch.  The array is a
+``rows`` x ``cols`` torus of ``P = rows * cols`` PEs (4x4, the
+OpenEdgeCGRA's, unless a configuration names another).  ``energy_dtype``
 is float32 as the configuration states; the benchmark's control runs it
 in bfloat16.
 
@@ -32,18 +34,17 @@ from .hw import BUS_N_TO_M, FIELDS as HW_FIELDS, FLOAT_FIELDS
 
 RESULT_FIELDS = ("latency_cc", "energy_pj", "power_mw", "checksum",
                  "steps_executed")
-ROWS = COLS = 4
-P = ROWS * COLS
 
 
-def pack(programs: Sequence[isa.Program], device) -> Dict[str, torch.Tensor]:
+def pack(programs: Sequence[isa.Program], device, *, rows: int = 4,
+         cols: int = 4) -> Dict[str, torch.Tensor]:
     """Programs NOP-padded to a common length, as ``(G, T_max, P)``
     tensors, with their true lengths ``plen`` and the derived masks."""
     t_max = max(p.n_instrs for p in programs)
     out = {}
     for f in isa.FIELDS:
         fill = isa.DEST["ROUT"] if f == "dest" else 0
-        arr = np.full((len(programs), t_max, P), fill, np.int32)
+        arr = np.full((len(programs), t_max, rows * cols), fill, np.int32)
         for g, p in enumerate(programs):
             arr[g, :p.n_instrs] = getattr(p, f)
         out[f] = torch.as_tensor(arr, device=device)
@@ -89,6 +90,7 @@ def _operands(src, imm, regs, rout, nbr):
 def _store(mem, addr, is_store, val, old):
     """Ascending-PE store arbitration: of several stores to one address
     the highest-indexed PE's lands."""
+    P = addr.shape[-1]
     same = addr.unsqueeze(-1) == addr.unsqueeze(-2)
     upper = torch.ones(P, P, dtype=torch.bool, device=addr.device).triu(1)
     later = (same & upper & is_store.unsqueeze(-2)).any(-1)
@@ -98,13 +100,16 @@ def _store(mem, addr, is_store, val, old):
     mem.scatter_(-1, addr.long(), torch.where(hit.any(-1), win, old))
 
 
-def _mem_done(is_mem, addr, hw, M):
+def _mem_done(is_mem, addr, hw, M, cols):
     """Per-PE completion cycle of this instruction's memory requests: a
     greedy in-order list scheduler over the bank ports and the DMA
-    engines, each accepting one request a cycle, done ``t_mem`` after the
-    issue slot.  The slot of request p is the longest chain of earlier
-    requests that share its bank or DMA, found by max-plus squaring."""
+    engines (one a PE, or one a column: PE p's is ``p % cols``), each
+    accepting one request a cycle, done ``t_mem`` after the issue slot.
+    The slot of request p is the longest chain of earlier requests that
+    share its bank or DMA, found by max-plus squaring: a chain spans at
+    most P - 1 edges, so ``(P - 2).bit_length()`` squarings reach it."""
     dev = addr.device
+    P = addr.shape[-1]
     nb = hw["n_banks"][:, None].clamp(min=1)
     bank_words = (M // nb).clamp(min=1)
     blocked = torch.minimum(
@@ -114,14 +119,14 @@ def _mem_done(is_mem, addr, hw, M):
                        torch.remainder(addr, nb), blocked)
     bank = torch.where(hw["bus"][:, None] == BUS_N_TO_M, bank, 0)
     pe = torch.arange(P, dtype=torch.int32, device=dev)
-    dma = torch.where(hw["dma_per_pe"][:, None] > 0, pe, pe % COLS)
+    dma = torch.where(hw["dma_per_pe"][:, None] > 0, pe, pe % cols)
     shares = ((bank.unsqueeze(-1) == bank.unsqueeze(-2))
               | (dma.unsqueeze(-1) == dma.unsqueeze(-2)))
     earlier = torch.ones(P, P, dtype=torch.bool, device=dev).tril(-1)
     edge = shares & earlier & is_mem.unsqueeze(-1) & is_mem.unsqueeze(-2)
     eye = torch.eye(P, dtype=torch.bool, device=dev)
     chain = torch.where(edge, 1.0, torch.where(eye, 0.0, -torch.inf))
-    for _ in range((P - 2).bit_length()):
+    for _ in range(max(P - 2, 0).bit_length()):
         chain = (chain.unsqueeze(-1) + chain.unsqueeze(-3)).amax(-2)
     slot = chain.amax(-1).to(torch.int32)
     return torch.where(is_mem, slot + hw["t_mem"][:, None], 0)
@@ -129,13 +134,14 @@ def _mem_done(is_mem, addr, hw, M):
 
 def run_lanes(programs: Sequence[isa.Program], prog_idx, hw: List[dict],
               mem: torch.Tensor, max_steps, profile: dict, *,
-              energy_dtype=torch.float32, steps_per_check: int = 32
-              ) -> Dict[str, torch.Tensor]:
+              rows: int = 4, cols: int = 4, energy_dtype=torch.float32,
+              steps_per_check: int = 32) -> Dict[str, torch.Tensor]:
     """Run every lane to EXIT or its own ``max_steps``.
 
-    programs: the programs lanes index into; prog_idx (B,); hw: one dict
-    of ``hw.FIELDS`` a lane; mem (B, M) int32, updated in place;
-    max_steps (B,).  Returns the five (B,) result fields.
+    programs: the programs lanes index into, each of ``rows * cols``
+    PEs; prog_idx (B,); hw: one dict of ``hw.FIELDS`` a lane; mem (B, M)
+    int32, updated in place; max_steps (B,).  Returns the five (B,)
+    result fields.
 
     The lanes advance ``steps_per_check`` steps between two looks at
     whether all are done; on a CUDA device those steps replay as one
@@ -144,7 +150,8 @@ def run_lanes(programs: Sequence[isa.Program], prog_idx, hw: List[dict],
     O = isa.OP
     dev = mem.device
     B, M = mem.shape
-    tab = pack(programs, dev)
+    P = rows * cols
+    tab = pack(programs, dev, rows=rows, cols=cols)
     gi = torch.as_tensor(prog_idx, dtype=torch.long, device=dev)
     hwt = {f: torch.as_tensor(np.array([h[f] for h in hw]),
                               dtype=torch.float32 if f in FLOAT_FIELDS
@@ -157,7 +164,7 @@ def run_lanes(programs: Sequence[isa.Program], prog_idx, hw: List[dict],
     scal = {k: torch.tensor(float(profile[k]), dtype=energy_dtype,
                             device=dev)
             for k in ("p_idle", "e_sw_op", "e_sw_mux", "mulzero")}
-    maps = isa.neighbour_index_maps(ROWS, COLS)
+    maps = isa.neighbour_index_maps(rows, cols)
     nbr = torch.as_tensor(np.stack([maps[k] for k in
                                     ("RCL", "RCR", "RCT", "RCB")]),
                           dtype=torch.long, device=dev)
@@ -203,7 +210,7 @@ def run_lanes(programs: Sequence[isa.Program], prog_idx, hw: List[dict],
 
         # timing
         is_mem = is_load | is_store
-        busy = torch.where(is_mem, _mem_done(is_mem, addr, hwt, M),
+        busy = torch.where(is_mem, _mem_done(is_mem, addr, hwt, M, cols),
                            torch.where(op == O["SMUL"], smul_lat, 1))
         lat = busy.amax(1)
 

@@ -1,7 +1,8 @@
 """``correct`` comes out false for the control and for every fault a cell
 can have, planted under a run that skips the look for a chip; a sound
 run comes out true.  A cell over four cards runs here on four host
-shards."""
+shards; a cell of a 2x8 array runs on a stand-in for a program that
+takes the array's shape."""
 import dataclasses
 import time
 
@@ -10,7 +11,9 @@ import pytest
 import torch
 
 from portbench import cells, check, control, harness
-from portbench.conftest import make_tree, tiny_config
+from portbench.campaign import Campaigns
+from portbench.conftest import make_tree, probe_config, tiny_config
+from portbench.reference import sweep as ref_sweep
 
 MIXES = ("full", "front", "topk")
 
@@ -157,6 +160,88 @@ def test_mesh_exchange_left_out_is_not_correct(mesh_cell, profile,
     assert out["numbers"]["int_mismatch"] > 0
 
 
+def _shaped_sweep(torus=None):
+    """``dse.sweep`` of an unreduced call on an array of any shape, made
+    of the port's plain path (``make_sweep_fn(rows=, cols=)``), as a
+    program that takes the shape would answer; ``torus`` runs it on
+    another array's neighbours instead (a planted fault)."""
+    from repro_torch.core import dse, hwconfig
+
+    def sweep(*, programs, profile, hw_configs, mem_images, max_steps,
+              mem_size, reduce, device, rows=4, cols=4):
+        assert reduce is None
+        rows, cols = torus or (rows, cols)
+        H, D = len(hw_configs), mem_images.shape[0]
+        lane = np.arange(len(programs) * H * D)
+        fn = dse.make_sweep_fn(list(programs), profile, rows=rows,
+                               cols=cols, mem_size=mem_size,
+                               max_steps=max_steps, device=device)
+        return fn(mem_images[torch.as_tensor(lane % D)],
+                  hwconfig.stack_configs([hw_configs[h]
+                                          for h in lane // D % H]),
+                  torch.as_tensor(lane // (H * D), dtype=torch.int32))
+    return sweep
+
+
+@pytest.fixture
+def probe_cell(tmp_path):
+    """A 2x8 configuration of two seeded probe kernels, unreduced."""
+    tree = make_tree(tmp_path, {"probe2x8": probe_config(2, 8)})
+    return cells.load_cell("probe2x8.full", root=tree)
+
+
+def test_sound_run_on_another_array_is_correct(probe_cell, profile,
+                                               monkeypatch):
+    from repro_torch.core import dse
+    monkeypatch.setattr(dse, "sweep", _shaped_sweep())
+    out = _run(None, "full", profile, cell=probe_cell)
+    assert out["correct"], out["numbers"]
+
+
+def test_answer_on_another_torus_is_not_correct(probe_cell, profile,
+                                                monkeypatch):
+    """The 2x8 cell answered on the 4x4 array's neighbours: the same 16
+    PEs on the wrong torus."""
+    from repro_torch.core import dse
+    monkeypatch.setattr(dse, "sweep", _shaped_sweep(torus=(4, 4)))
+    out = _run(None, "full", profile, cell=probe_cell)
+    assert not out["correct"]
+    assert out["numbers"]["int_mismatch"] > 0
+
+
+def test_reference_with_the_4x4_dma_engines_is_not_correct(
+        probe_cell, profile, monkeypatch):
+    """A reference that keeps ``pe % 4`` for the DMA engine on the 2x8
+    array disagrees with the sound answer."""
+    from repro_torch.core import dse
+    monkeypatch.setattr(dse, "sweep", _shaped_sweep())
+    mem_done = ref_sweep._mem_done
+    monkeypatch.setattr(ref_sweep, "_mem_done",
+                        lambda is_mem, addr, hw, M, cols:
+                        mem_done(is_mem, addr, hw, M, 4))
+    out = _run(None, "full", profile, cell=probe_cell)
+    assert not out["correct"]
+    assert out["numbers"]["int_mismatch"] > 0
+
+
+@pytest.mark.parametrize("drop", ["rows", "cols"])
+def test_set_up_refuses_half_a_shape(drop, profile):
+    cfg = probe_config(2, 8)
+    del cfg[drop]
+    with pytest.raises(ValueError, match="'rows' and 'cols'"):
+        Campaigns(cfg, {"reduce": None}, profile("cpu"), "cpu")
+
+
+@pytest.mark.parametrize("rows,cols", [(8, 8), (2, 4)])
+def test_set_up_refuses_programs_of_another_array(rows, cols, profile):
+    """The 16-PE probes in a configuration of another array."""
+    cfg = probe_config(4, 4)
+    cfg.update(rows=rows, cols=cols)
+    with pytest.raises(ValueError,
+                       match=rf"program 'probe-4x4-1'.*{rows}x{cols}"):
+        Campaigns(cfg, {"reduce": None}, profile("cpu"), "cpu")
+
+
 @pytest.mark.parametrize("mix", ["front", "topk"])
 def test_reducer_fault_is_not_correct(tiny_tree, mix, profile, monkeypatch):
     from repro_torch.analysis import pareto
@@ -175,6 +260,17 @@ def test_control_is_not_correct(tiny_tree, mix, profile):
     assert [r["correct"] for r in rows] == [True, False, False, False]
     assert all(r["numbers"]["energy_rel_err"]
                > check.LIMITS["energy_rel_err"] for r in rows[1:])
+
+
+def test_control_on_another_array_is_not_correct(probe_cell, profile,
+                                                 monkeypatch):
+    """The control and the program side both run on the configuration's
+    2x8 array: the sound stand-in passes, the bfloat16 reference fails."""
+    from repro_torch.core import dse
+    monkeypatch.setattr(dse, "sweep", _shaped_sweep())
+    rows = control.readings(probe_cell, [11], [11, 12, 13], "cpu",
+                            profile_fn=profile, emit=lambda row: None)
+    assert [r["correct"] for r in rows] == [True, False, False, False]
 
 
 @pytest.mark.cuda
